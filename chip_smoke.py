@@ -1,0 +1,451 @@
+"""Smoke run of the PyTorch/CUDA port on one card.
+
+    python3 chip_smoke.py              # on a machine with a CUDA card
+    python3 chip_smoke.py --rehearse   # the same control flow on the CPU,
+                                       # tiny fleet, no kernels; exits 3
+
+Drives the port's main path, ``make_engine(algo, fleet).route_texts(...)``,
+for the eight hand-tuned algorithms at a 10,005-server mock cluster
+(20,010 tools) and 256-query batches, and holds it to account:
+
+1. set-up: TF32 off, the card's name and power limit, the fleet, the
+   queries and a seeded telemetry window;
+2. each CUDA kernel (built from ``src/repro_torch/csrc`` on first use)
+   against its plain PyTorch version at the path's shapes;
+3. the main path with the launch counters set to 0: every kernel-path
+   decision equal to the plain path's on the same card, every counter
+   risen by exactly one launch per route, a per-query telemetry step,
+   a failover loop, and a sample of decisions against the scalar router;
+4. times: each kernel's median over CUDA-event-timed launches beside its
+   plain version, one library call where there is one, and its bound; the
+   end-to-end ``route_texts`` time per batch.
+
+The line before the last is the ``kernels`` JSON object; the last is
+``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+RTOL, ATOL = 2e-6, 2e-7          # the port's parity tolerance for C, N, S
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
+FP32_OPS_PER_S = 67e12           # H100 SXM, f32 outside the tensor cores
+ALGOS = ("rag", "rerank_rag", "prag", "sonar", "sonar_lb", "sonar_ft",
+         "sonar_geo", "sonar_session")
+REPLACES = {
+    "bm25_scores": "src/repro/kernels/bm25_score.py:31",
+    "qos_scores": "src/repro/kernels/qos_score.py:32",
+    "fused_score_select": "src/repro/kernels/score_fuse.py:53",
+}
+SOURCES = {
+    "bm25_scores": "src/repro_torch/csrc/bm25_score.cu",
+    "qos_scores": "src/repro_torch/csrc/qos_score.cu",
+    "fused_score_select": "src/repro_torch/csrc/score_fuse.cu",
+}
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def setup_imports():
+    if not (SRC / "repro_torch" / "__init__.py").is_file():
+        fail(f"the port's sources are missing: no {SRC / 'repro_torch'}")
+    sys.path.insert(0, str(SRC))
+
+
+def main(rehearse: bool) -> None:
+    setup_imports()
+    import numpy as np
+    import torch
+
+    from repro_torch.core import dataset
+    from repro_torch.core.batch_routing import make_engine
+    from repro_torch.core.qos import network_score
+    from repro_torch.core.routing import RoutingConfig, ToolIndex, make_router
+    from repro_torch.core.bm25 import bm25_scores as bm25_plain, topk
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import ref as kref
+
+    if rehearse:
+        dev = torch.device("cpu")
+        n_per_template, n_q, n_q_perq, reps = 2, 24, 8, 3
+    else:
+        if not torch.cuda.is_available():
+            fail("torch.cuda.is_available() is False: this script needs a CUDA card")
+        dev = torch.device("cuda")
+        n_per_template, n_q, n_q_perq, reps = 667, 256, 64, 25
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    # ------------------------------------------------------------------ 1
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"setup: torch {torch.__version__} cuda {torch.version.cuda} "
+        f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn={torch.backends.cudnn.allow_tf32}")
+    if not rehearse:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip().splitlines()[0]
+        log(f"card: {smi}")
+        log(f"device: {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    servers = dataset.mock_cluster(dataset.build_server_pool(0), n_per_template=n_per_template)
+    t0 = time.perf_counter()
+    index = ToolIndex(servers)
+    n_s, n_t = len(servers), index.n_tools
+    log(f"fleet: {n_s} servers, {n_t} tools, V_s {index.server_corpus.weights.shape[1]}, "
+        f"V_t {index.tool_corpus.weights.shape[1]}, index built in "
+        f"{time.perf_counter() - t0:.3f} s")
+    cfg = RoutingConfig(top_s=8, top_k=8)
+    batches = [[q.text for q in dataset.build_query_dataset(n=n_q, seed=s)] for s in (1, 2)]
+    rng = np.random.default_rng(0)
+    T = 64
+    lat = rng.uniform(20.0, 300.0, (n_s, T)).astype(np.float32)
+    lat[rng.random(n_s) < 0.05, -1] = 1200.0                       # offline
+    spikes = rng.random(n_s) < 0.10
+    lat[spikes, -8:] += rng.uniform(800.0, 1500.0, (int(spikes.sum()), 8))  # outage risk
+    lat[spikes, -1] = np.minimum(lat[spikes, -1], 990.0)
+    load = (rng.random(n_s) * 1.5).astype(np.float32)
+    age = (rng.random(n_s) * 600.0).astype(np.float32)
+    failed = rng.random(n_s) < 0.05
+    rtt_rows = (rng.random((n_q, n_s)) * 300.0).astype(np.float32)
+    region_rtt = (rng.random((6, n_s)) * 300.0).astype(np.float32)
+    regions = rng.integers(-1, 6, n_q).astype(np.int32)
+    affinity = (rng.random(n_s) * (rng.random(n_s) < 0.1)).astype(np.float32)
+    alive = rng.random(n_s) < 0.7
+    gen = torch.Generator(device=dev).manual_seed(3)
+    lat_perq = torch.rand((n_q_perq, n_s, T), generator=gen, device=dev) * 280.0 + 20.0
+    lat_perq[:, ::17, -1] = 1500.0
+    lat_perq[:, ::11, -6:] = 900.0
+
+    def close(a, b, what):
+        a, b = a.float().cpu(), b.float().cpu()
+        if a.shape != b.shape or not torch.allclose(a, b, rtol=RTOL, atol=ATOL):
+            fail(f"{what}: kernel and plain version disagree "
+                 f"(max abs {float((a - b).abs().max()) if a.shape == b.shape else 'shape'})")
+        return float((a - b).abs().max()) if a.numel() else 0.0
+
+    # ------------------------------------------------------------------ 2
+    eng0 = make_engine("sonar", servers, cfg, device=dev, index=index)
+    enc = eng0.encode(batches[0])
+    q_s = torch.as_tensor(enc.q_server, device=dev)
+    q_t = torch.as_tensor(enc.q_tool, device=dev)
+    q_r = torch.as_tensor(
+        make_engine("rerank_rag", servers, cfg, device=dev, index=index)
+        .encode(batches[0]).q_rerank, device=dev)
+    w_s, w_t, ts = eng0._w_server, eng0._w_tool, eng0._tool_server
+    lat_t = torch.as_tensor(lat, device=dev)
+    flat = lat_perq.reshape(-1, T)
+
+    max_err = {}
+    ops.reset_launches()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        k_s = ops.bm25_scores(q_s, w_s)
+        if not rehearse:
+            log(f"phase 2: kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+            for name, text in _build.build_logs().items():
+                for line in text.splitlines():
+                    if "Used" in line or "spill" in line:
+                        log(f"phase 2: ptxas {name}: {line.strip()}")
+        max_err["bm25_scores"] = close(k_s, bm25_plain(w_s, q_s), "bm25_scores [n_q, V_s]x[n_s, V_s]")
+        sync()
+        e1 = close(ops.qos_scores(lat_t), network_score(lat_t), "qos_scores shared window")
+        e2 = close(ops.qos_scores(flat), network_score(flat), "qos_scores per-query window")
+        max_err["qos_scores"] = max(e1, e2)
+        sync()
+        _, cand = topk(k_s, cfg.top_s)
+        cand = cand.to(torch.int32)
+        n_srv = ops.qos_scores(lat_t)
+        tool_qos = n_srv[ts.long()]
+        tool_load = torch.as_tensor(load, device=dev)[ts.long()]
+        tool_rtt = torch.rand((n_t,), generator=gen, device=dev)
+        tool_dead = torch.as_tensor(failed.astype(np.float32), device=dev)[ts.long()]
+
+        def per_q(x):             # a per-query copy of a broadcast row, perturbed
+            return x[None, :] + 0.01 * torch.rand((n_q, n_t), generator=gen, device=dev)
+
+        live = torch.tensor([0.45, 0.55, 0.3, 0.2], device=dev)
+        variants = {
+            "broadcast rows": dict(args=(q_t, w_t, tool_qos, tool_load, tool_dead, None),
+                                   kw=dict(alpha=0.5, beta=0.5, gamma=0.35, delta=0.4,
+                                           tool_rtt=tool_rtt)),
+            "per-query rows": dict(args=(q_t, w_t, per_q(tool_qos), per_q(tool_load),
+                                         (per_q(tool_dead) > 0.5).float(), None),
+                                   kw=dict(alpha=0.5, beta=0.5, gamma=0.35, delta=0.4,
+                                           tool_rtt=per_q(tool_rtt))),
+            "bf16 operands": dict(args=(q_t.bfloat16(), w_t.bfloat16(), tool_qos, tool_load,
+                                        tool_dead, None),
+                                  kw=dict(alpha=0.5, beta=0.5, gamma=0.35)),
+            "rerank+live weights+affinity": dict(
+                args=(q_t, w_t, tool_qos, tool_load, tool_dead, q_r),
+                kw=dict(alpha=live[0], beta=live[1], gamma=live[2], delta=live[3],
+                        tool_rtt=tool_rtt, tool_aff=per_q(tool_rtt) * 0.5, eps=0.25)),
+        }
+        errs = []
+        for name, v in variants.items():
+            q_, w_, qos_, load_, dead_, qr_ = v["args"]
+            kw = dict(k=cfg.top_k, temp=1.0, **v["kw"])
+            got = ops.fused_score_select(q_, w_, ts, cand, qos_, load_, dead_, qr_, **kw)
+            want = kref.fused_score_select_ref(q_, w_, ts, cand, qos_, load_, dead_, qr_, **kw)
+            sync()
+            if not torch.equal(got[0].cpu(), want[0].cpu()):
+                fail(f"fused_score_select {name}: decisions differ from the plain version")
+            errs += [close(g, w, f"fused_score_select {name}") for g, w in zip(got[1:], want[1:])]
+            log(f"phase 2: fused_score_select [{name}] decisions equal, "
+                f"max abs err {max(errs[-3:])}")
+        max_err["fused_score_select"] = max(errs)
+    log(f"phase 2: kernels agree with their plain versions: {max_err}")
+
+    # ------------------------------------------------------------------ 3
+    engines = {
+        algo: (make_engine(algo, servers, cfg, device=dev, index=index),
+               make_engine(algo, servers, cfg, device=dev, index=index, use_kernels=False))
+        for algo in ALGOS
+    }
+    if not all(ek.use_kernels for ek, _ in engines.values()) and not rehearse:
+        fail("use_kernels does not default to True on the card")
+
+    def extras(algo, i):
+        if algo == "sonar_lb":
+            return dict(server_load=load)
+        if algo == "sonar_ft":
+            return dict(server_load=load, telemetry_age_s=age, failed_mask=failed)
+        if algo == "sonar_geo":
+            return (dict(server_load=load, client_rtt_ms=rtt_rows) if i == 0 else
+                    dict(server_load=load, client_region=regions, region_rtt_ms=region_rtt))
+        if algo == "sonar_session":
+            return dict(server_load=load, client_rtt_ms=rtt_rows, affinity=affinity)
+        return {}
+
+    def same(dk, dp, what):
+        if not (np.array_equal(dk.server_idx, dp.server_idx)
+                and np.array_equal(dk.tool_idx, dp.tool_idx)):
+            bad = int(np.sum(dk.tool_idx != dp.tool_idx))
+            fail(f"{what}: {bad} kernel-path decisions differ from the plain path")
+        for a, b, nm in ((dk.expertise, dp.expertise, "C"), (dk.network, dp.network, "N"),
+                         (dk.fused, dp.fused, "S")):
+            if not np.allclose(a, b, rtol=RTOL, atol=ATOL):
+                fail(f"{what}: {nm} differs beyond tolerance")
+            if not np.all(np.isfinite(a)):
+                fail(f"{what}: non-finite {nm}")
+        if dk.server_idx.shape != (len(dk),) or dk.server_idx.min() < 0 \
+                or dk.server_idx.max() >= n_s:
+            fail(f"{what}: bad decision shape or range")
+
+    routes = {"bm25_scores": 0, "qos_scores": 0, "fused_score_select": 0}
+    kernel_decisions = {}
+    plain_decisions = {}
+    ops.reset_launches()                       # the main path's count starts here
+    t_main = time.perf_counter()
+    for algo, (ek, _) in engines.items():
+        for i, texts in enumerate(batches):
+            kernel_decisions[algo, i] = ek.route_texts(texts, lat, **extras(algo, i))
+            routes["bm25_scores"] += 1
+            routes["fused_score_select"] += 1
+            routes["qos_scores"] += int(ek.uses_network)
+    ek = engines["sonar"][0]
+    kernel_decisions["perq"] = ek.route_texts(batches[0][:n_q_perq], lat_perq)
+    ek_ft = engines["sonar_ft"][0]
+    kernel_decisions["failover"] = ek_ft.route_failover(
+        ek_ft.encode(batches[0]), lat, load, age, alive=alive)
+    n_fo_routes = 1 + int(np.max(kernel_decisions["failover"][1], initial=0))
+    for name in routes:
+        routes[name] += 1 + n_fo_routes
+    sync()
+    launches = ops.launch_counts()             # ... and is read here
+    log(f"phase 3: main path ran {sum(v for v in routes.values())} kernel calls in "
+        f"{time.perf_counter() - t_main:.3f} s; launches {launches}")
+    if not rehearse:
+        for name, n in launches.items():
+            if n == 0:
+                fail(f"{name}: the main path never launched its kernel")
+            if n != routes[name]:
+                fail(f"{name}: {n} launches for {routes[name]} kernel calls")
+
+    for algo, (_, ep) in engines.items():
+        for i, texts in enumerate(batches):
+            plain_decisions[algo, i] = ep.route_texts(texts, lat, **extras(algo, i))
+            same(kernel_decisions[algo, i], plain_decisions[algo, i], f"{algo} batch {i}")
+    same(kernel_decisions["perq"],
+         engines["sonar"][1].route_texts(batches[0][:n_q_perq], lat_perq), "per-query telemetry")
+    ep_ft = engines["sonar_ft"][1]
+    dec_p, fo_p = ep_ft.route_failover(ep_ft.encode(batches[0]), lat, load, age, alive=alive)
+    same(kernel_decisions["failover"][0], dec_p, "route_failover")
+    if not np.array_equal(kernel_decisions["failover"][1], fo_p):
+        fail("route_failover: failover counts differ")
+    log("phase 3: every kernel-path decision equals the plain path's "
+        f"({len(ALGOS)} algorithms x {len(batches)} batches, per-query step, failover)")
+
+    n_scalar = 4
+    for algo in ALGOS:
+        router = make_router(algo, servers[:1], cfg)
+        router.index = index
+        dk = kernel_decisions[algo, 0]
+        for i, text in enumerate(batches[0][:n_scalar]):
+            ex = extras(algo, 0)
+            if "client_rtt_ms" in ex:
+                ex = dict(ex, client_rtt_ms=ex["client_rtt_ms"][i])
+            d = router.select(text, lat, **ex)
+            if (d.server_idx, d.tool_idx) != (int(dk.server_idx[i]), int(dk.tool_idx[i])):
+                fail(f"{algo} query {i}: scalar router picks {(d.server_idx, d.tool_idx)}, "
+                     f"engine {(int(dk.server_idx[i]), int(dk.tool_idx[i]))}")
+            if not np.isclose(d.fused, dk.fused[i], rtol=RTOL, atol=ATOL) \
+                    and not (d.fused == -np.inf and dk.fused[i] <= kref.NEG / 2):
+                fail(f"{algo} query {i}: fused score {dk.fused[i]} vs scalar {d.fused}")
+    log(f"phase 3: the scalar router agrees on the first {n_scalar} queries of every algorithm")
+
+    # ------------------------------------------------------------------ 4
+    def timed(fn, n=reps):
+        """Median ms of ``n`` calls after two warm-up calls (CUDA events on the card)."""
+        fn()
+        fn()
+        sync()
+        out = []
+        for _ in range(n):
+            if dev.type == "cuda":
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                fn()
+                b.record()
+                b.synchronize()
+                out.append(a.elapsed_time(b))
+            else:
+                t = time.perf_counter()
+                fn()
+                out.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(out)
+
+    def bound(n_bytes, n_ops):
+        tb, to = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
+        return (tb, "bytes") if tb >= to else (to, "operations")
+
+    rows = []
+    with torch.no_grad():
+        # bm25: a sparse-query product; count the vocabulary columns the
+        # queries use and their non-zero terms, and the full output
+        nnz = int((q_s != 0).sum())
+        used_cols = int((q_s != 0).any(0).sum())
+        b_bm25 = bound(4 * (q_s.numel() + used_cols * w_s.shape[0] + k_s.numel()),
+                       2 * nnz * w_s.shape[0])
+        rows.append(dict(
+            name="bm25_scores", ms=timed(lambda: ops.bm25_scores(q_s, w_s)),
+            plain_ms=timed(lambda: bm25_plain(w_s, q_s), n=max(3, reps // 5)),
+            library_ms=timed(lambda: torch.matmul(q_s, w_s.T)),
+            bound=b_bm25, dense_bound_ms=bound(4 * (q_s.numel() + w_s.numel() + k_s.numel()),
+                                               2 * k_s.numel() * q_s.shape[1])[0],
+            shape=f"[{q_s.shape[0]}, {q_s.shape[1]}] x [{w_s.shape[0]}, {w_s.shape[1]}]"))
+        qos_ops = 12 * lat_t.numel()
+        rows.append(dict(
+            name="qos_scores", ms=timed(lambda: ops.qos_scores(lat_t)),
+            plain_ms=timed(lambda: network_score(lat_t)), library_ms=None,
+            bound=bound(4 * (lat_t.numel() + lat_t.shape[0]), qos_ops),
+            shape=f"[{lat_t.shape[0]}, {T}]"))
+        perq = dict(ms=timed(lambda: ops.qos_scores(flat)),
+                    plain_ms=timed(lambda: network_score(flat)),
+                    bound=bound(4 * (flat.numel() + flat.shape[0]), 12 * flat.numel()))
+        in_cand = kref.candidate_mask(ts, cand)
+        n_pairs = int(in_cand.sum())
+        uniq = int(in_cand.any(0).sum())
+        V_t = q_t.shape[1]
+        b_fused = bound(4 * (q_t.numel() + cand.numel() + ts.numel() + uniq * (V_t + 3)
+                             + 4 * q_t.shape[0]), 2 * n_pairs * V_t)
+        fk = dict(k=cfg.top_k, alpha=0.5, beta=0.5, gamma=0.35, delta=0.4, temp=1.0,
+                  tool_rtt=tool_rtt)
+        rows.append(dict(
+            name="fused_score_select",
+            ms=timed(lambda: ops.fused_score_select(q_t, w_t, ts, cand, tool_qos, tool_load,
+                                                    tool_dead, **fk)),
+            plain_ms=timed(lambda: kref.fused_score_select_ref(
+                q_t, w_t, ts, cand, tool_qos, tool_load, tool_dead, **fk), n=max(3, reps // 5)),
+            library_ms=None, bound=b_fused,
+            shape=f"[{q_t.shape[0]}, {V_t}] x [{w_t.shape[0]}, {V_t}], top_s {cand.shape[1]}, "
+                  f"{n_pairs} candidate (query, tool) pairs, {uniq} distinct tools"))
+    per_route = {n: launches[n] / max(routes[n], 1) for n in launches}
+    for r in rows:
+        log(f"phase 4: {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library "
+            f"{'n/a' if r['library_ms'] is None else format(r['library_ms'], '.4f') + ' ms'}, "
+            f"bound {r['bound'][0]:.5f} ms by {r['bound'][1]}, "
+            f"launches per route call {per_route[r['name']]:.2f}")
+    log(f"phase 4: bm25_scores dense-product bound {rows[0]['dense_bound_ms']:.5f} ms")
+    log(f"phase 4: qos_scores per-query [{flat.shape[0]}, {T}]: kernel {perq['ms']:.4f} ms, "
+        f"plain {perq['plain_ms']:.4f} ms, bound {perq['bound'][0]:.5f} ms by {perq['bound'][1]}")
+
+    e2e = {}
+    for algo in ("sonar", "sonar_ft"):
+        for label, eng in (("kernels", engines[algo][0]), ("plain", engines[algo][1])):
+            times = []
+            for _ in range(5 if not rehearse else 2):
+                sync()
+                t = time.perf_counter()
+                eng.route_texts(batches[0], lat, **extras(algo, 0))
+                sync()
+                times.append((time.perf_counter() - t) * 1e3)
+            e2e[algo, label] = statistics.median(times)
+            log(f"phase 4: route_texts {algo} [{label}] {n_q} queries, shared window: "
+                f"median {e2e[algo, label]:.3f} ms per batch (host clock, {len(times)} runs)")
+
+    if dev.type == "cuda":
+        eng = engines["sonar"][0]
+        enc0 = eng.encode(batches[0])
+        eng.route(enc0, lat)
+        sync()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t = time.perf_counter()
+            for _ in range(3):
+                eng.route(enc0, lat)
+            sync()
+            wall = (time.perf_counter() - t) * 1e3 / 3
+        dev_us = {}
+        for ev in prof.key_averages():
+            if ev.device_type != torch.autograd.DeviceType.CUDA \
+                    or getattr(ev, "is_user_annotation", False) or ev.key.startswith("netmcp."):
+                continue      # host-side ops, and labels whose device range spans kernels
+            d = getattr(ev, "self_device_time_total", 0) or getattr(ev, "self_cuda_time_total", 0)
+            if d:
+                dev_us[ev.key] = d / 3
+        busy = sum(dev_us.values()) / 1e3
+        top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
+        log(f"phase 4: profile of route (sonar, encoded, {n_q} queries): wall {wall:.3f} ms, "
+            f"device busy {busy:.3f} ms ({100 * busy / wall:.1f} %), top kernels (us): "
+            + "; ".join(f"{k[:48]} {v:.1f}" for k, v in top))
+
+    kernels = [
+        dict(name=r["name"], route="cuda", source=SOURCES[r["name"]],
+             replaces=REPLACES[r["name"]], launches=launches[r["name"]],
+             max_abs_err=max_err[r["name"]], ms=r["ms"], plain_ms=r["plain_ms"],
+             bound_ms=r["bound"][0], bound_by=r["bound"][1], library_ms=r["library_ms"])
+        for r in rows
+    ]
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    if rehearse:
+        log("rehearsal on the CPU finished: no kernel ran, no result")
+        sys.exit(3)
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main(rehearse="--rehearse" in sys.argv[1:])

@@ -1,0 +1,56 @@
+"""Carry the reference's routing state into the port.
+
+The inputs are plain numpy arrays and dicts (what the JAX package's
+objects hold), so this module imports nothing of the reference:
+
+* `index_from_arrays` builds a port `ToolIndex` from a compiled index's
+  corpus weights, vocabularies and tool table, without re-tokenising;
+* `routing_config_from_dict` rebuilds a `RoutingConfig` from
+  ``dataclasses.asdict`` of the reference's, nested `QosParams` included.
+"""
+from __future__ import annotations
+
+from typing import Mapping, Sequence
+
+import numpy as np
+
+from repro_torch.core.bm25 import Bm25Corpus
+from repro_torch.core.dataset import Server
+from repro_torch.core.qos import QosParams
+from repro_torch.core.routing import RoutingConfig, ToolIndex
+
+
+def index_from_arrays(
+    server_weights: np.ndarray,     # [n_servers, V_s] f32
+    tool_weights: np.ndarray,       # [n_tools, V_t] f32
+    tool_server: np.ndarray,        # [n_tools] host server per tool
+    server_vocab: Mapping[str, int],
+    tool_vocab: Mapping[str, int],
+    tool_names: Sequence[str],
+    servers: Sequence[Server],
+) -> ToolIndex:
+    """A port `ToolIndex` over already-compiled corpora."""
+    sw = np.ascontiguousarray(server_weights, dtype=np.float32)
+    tw = np.ascontiguousarray(tool_weights, dtype=np.float32)
+    ts = np.asarray(tool_server, dtype=np.int32)
+    n_tools = ts.shape[0]
+    if sw.shape[0] != len(servers) or tw.shape[0] != n_tools or len(tool_names) != n_tools:
+        raise ValueError("index_from_arrays: server/tool counts disagree")
+    if sw.shape[1] != max(len(server_vocab), 1) or tw.shape[1] != max(len(tool_vocab), 1):
+        raise ValueError("index_from_arrays: vocabulary sizes disagree with the weights")
+    return ToolIndex.from_corpora(
+        servers,
+        Bm25Corpus(vocab=dict(server_vocab), weights=sw, n_docs=sw.shape[0]),
+        Bm25Corpus(vocab=dict(tool_vocab), weights=tw, n_docs=tw.shape[0]),
+        ts,
+        tool_names,
+    )
+
+
+def routing_config_from_dict(d: Mapping) -> RoutingConfig:
+    """`RoutingConfig` from ``dataclasses.asdict`` of the reference's."""
+    d = dict(d)
+    qos = d.pop("qos", None)
+    if isinstance(qos, Mapping):
+        qos = QosParams(**qos)
+    return RoutingConfig(**d, **({} if qos is None else {"qos": qos}))

@@ -1,0 +1,141 @@
+"""Entry points of the port's kernels, twin of `repro.kernels.ops`.
+
+Each wrapper dispatches on where its tensors lie: CPU tensors go to the
+plain PyTorch version, CUDA tensors to the hand-written CUDA kernel, which
+either launches or raises (there is no fallback).  Operands on mixed
+devices raise.  Each kernel launcher keeps an integer count of its
+launches (`launch_counts`), so a run can show that it went through the
+kernels.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.bm25 import bm25_scores as _bm25_plain
+from repro_torch.core.qos import DEFAULT_QOS, QosParams, network_score
+from repro_torch.kernels import bm25_score as _bm25
+from repro_torch.kernels import qos_score as _qos
+from repro_torch.kernels import ref as kref
+from repro_torch.kernels import score_fuse as _scf
+
+_LAUNCHERS = {
+    "bm25_scores": _bm25.bm25_scores_cuda,
+    "qos_scores": _qos.qos_scores_cuda,
+    "fused_score_select": _scf.fused_score_select_cuda,
+}
+
+
+def launch_counts() -> dict:
+    """Kernel launches so far, by wrapper name."""
+    return {name: fn.launches for name, fn in _LAUNCHERS.items()}
+
+
+def reset_launches() -> None:
+    for fn in _LAUNCHERS.values():
+        fn.launches = 0
+
+
+def _on_cuda(*tensors) -> bool:
+    kinds = {t.device.type for t in tensors if isinstance(t, torch.Tensor)}
+    if kinds <= {"cpu"}:
+        return False
+    if kinds == {"cuda"}:
+        return True
+    raise ValueError(f"repro_torch.ops: operands on mixed devices {sorted(kinds)}")
+
+
+# ---------------------------------------------------------------------------
+# BM25
+# ---------------------------------------------------------------------------
+
+def bm25_scores(qcounts: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """scores [n_q, n_docs] = qcounts [n_q, V] @ weights [n_docs, V]^T."""
+    if not _on_cuda(qcounts, weights):
+        return _bm25_plain(weights, qcounts)
+    return _bm25.bm25_scores_cuda(
+        qcounts.to(torch.float32).contiguous(), weights.to(torch.float32).contiguous()
+    )
+
+
+# ---------------------------------------------------------------------------
+# QoS
+# ---------------------------------------------------------------------------
+
+def qos_scores(lat: torch.Tensor, params: QosParams = DEFAULT_QOS) -> torch.Tensor:
+    """Fleet QoS scores N [n] from windows lat [n, T] (Eq. 7)."""
+    if not _on_cuda(lat):
+        return network_score(lat, params)
+    if lat.dtype != torch.bfloat16:
+        lat = lat.to(torch.float32)
+    return _qos.qos_scores_cuda(lat.contiguous(), params)
+
+
+# ---------------------------------------------------------------------------
+# Single-pass fused stage 2
+# ---------------------------------------------------------------------------
+
+def fused_score_select(
+    q_tool: torch.Tensor,        # [n_q, V] stage-2 query term counts (f32/bf16)
+    w_tool: torch.Tensor,        # [n_tools, V] tool corpus weights (f32/bf16)
+    tool_server: torch.Tensor,   # [n_tools] host server per tool
+    cand_servers: torch.Tensor,  # [n_q, top_s] stage-1 candidates
+    tool_qos: torch.Tensor,      # [n_q, n_tools] or [n_tools] per-tool N
+    tool_load: Optional[torch.Tensor] = None,
+    tool_dead: Optional[torch.Tensor] = None,
+    q_rerank: Optional[torch.Tensor] = None,   # [n_q, V] (RerankRAG)
+    *,
+    k: int,
+    alpha,
+    beta,
+    gamma=0.0,
+    temp: float = 1.0,
+    tool_rtt: Optional[torch.Tensor] = None,
+    delta=0.0,
+    tool_aff: Optional[torch.Tensor] = None,
+    eps: float = 0.0,
+):
+    """Winning (tool_idx i32, C, N, S) per query, the stage-2 matrix never
+    materialised on the card.  A fusion weight given as a tensor makes all
+    four live: the kernel reads them from a [4] f32 device vector, so a
+    weight change needs no rebuild and no host sync."""
+    k = min(k, w_tool.shape[0])
+    extras = (tool_qos, tool_load, tool_dead, q_rerank, tool_rtt, tool_aff)
+    if not _on_cuda(q_tool, w_tool, tool_server, cand_servers, *extras):
+        return kref.fused_score_select_ref(
+            q_tool, w_tool, tool_server, cand_servers, tool_qos, tool_load,
+            tool_dead, q_rerank, k=k, alpha=alpha, beta=beta, gamma=gamma,
+            temp=temp, tool_rtt=tool_rtt, delta=delta, tool_aff=tool_aff, eps=eps,
+        )
+    dev = q_tool.device
+    weights = (alpha, beta, gamma, delta)
+    live = None
+    if any(isinstance(x, torch.Tensor) for x in weights):
+        live = torch.stack([
+            torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(()) for x in weights
+        ])
+        weights = (0.0, 0.0, 0.0, 0.0)
+
+    def row(x):
+        return None if x is None else x.to(torch.float32).contiguous()
+
+    def operand(x, dtype=None):        # f32 or bf16 storage, widened in the kernel
+        if dtype is None:
+            dtype = x.dtype if x.dtype in (torch.float32, torch.bfloat16) else torch.float32
+        return x.to(dtype).contiguous()
+
+    q = operand(q_tool)
+    return _scf.fused_score_select_cuda(
+        q, operand(w_tool),
+        tool_server.to(torch.int32).contiguous(),
+        cand_servers.to(torch.int32).contiguous(),
+        {
+            "tool_qos": row(tool_qos), "tool_load": row(tool_load),
+            "tool_rtt": row(tool_rtt), "tool_dead": row(tool_dead),
+            "tool_aff": row(tool_aff),
+        },
+        None if q_rerank is None else operand(q_rerank, q.dtype),
+        k=k, alpha=weights[0], beta=weights[1], gamma=weights[2], delta=weights[3],
+        eps=eps, temp=temp, live_weights=live,
+    )

@@ -1,0 +1,123 @@
+"""Plain PyTorch versions of the stage-2 kernels, port of `repro.kernels.ref`.
+
+`fused_select_ref` is the unfused stage-2 tail (top-k, softmax, fusion,
+argmax) over materialised score matrices: the oracle of the batched
+engine's ``use_kernels=False`` path.  `fused_score_select_ref` adds the
+stage-2 BM25 product and the candidate mask in front of it: the plain
+version of the fused CUDA kernel (`kernels/score_fuse.py`), which the
+wrapper in `kernels/ops.py` runs for CPU tensors.
+
+The softmax denominator is summed over the k slots in order, as the
+kernel does, and every top-k is a stable sort, so ties break toward the
+lower tool id as ``lax.top_k`` does.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.bm25 import bm25_scores, topk
+
+NEG = -1e30   # finite -inf stand-in (kernel and oracle agree)
+
+
+def _gather(per_tool: torch.Tensor, top_i: torch.Tensor) -> torch.Tensor:
+    per_tool = per_tool.to(torch.float32)
+    if per_tool.ndim == 1:
+        return per_tool[top_i]
+    return torch.gather(per_tool, -1, top_i)
+
+
+def fused_select_ref(
+    sel_scores: torch.Tensor,   # [n_q, n_tools], invalid = -inf/NEG
+    val_scores: torch.Tensor,   # [n_q, n_tools]
+    tool_qos: torch.Tensor,     # [n_q, n_tools] or [n_tools]
+    tool_load: Optional[torch.Tensor] = None,  # U
+    tool_dead: Optional[torch.Tensor] = None,  # >0 excludes from the argmax
+    *,
+    k: int,
+    alpha,
+    beta,
+    gamma=0.0,
+    temp: float = 1.0,
+    tool_rtt: Optional[torch.Tensor] = None,   # R
+    delta=0.0,
+    tool_aff: Optional[torch.Tensor] = None,   # W
+    eps: float = 0.0,
+):
+    """Stage-2 top-k (ties -> lower index), Eq. 5 softmax over the valid
+    candidates, Eq. 8 fusion (-gamma*U, -delta*R, +eps*W), dead mask,
+    argmax (first maximum).  Dead candidates keep their softmax mass; if
+    every candidate is masked or invalid the top-selection one wins.
+    The fusion weights may be floats or 0-d tensors (live weights).
+    Returns (tool_idx i32, C, N, S), each [n_q]."""
+    sel = torch.clamp_min(sel_scores.to(torch.float32), NEG)
+    k = min(k, sel.shape[-1])
+    top_v, top_i = topk(sel, k)                              # [n_q, k]
+    valid = top_v > NEG / 2.0
+    val = torch.gather(val_scores.to(torch.float32), -1, top_i)
+    val = torch.where(valid, val, NEG)
+
+    n = _gather(tool_qos, top_i)
+    u = _gather(tool_load, top_i) if tool_load is not None else torch.zeros_like(n)
+    r = _gather(tool_rtt, top_i) if tool_rtt is not None else torch.zeros_like(n)
+    z = (val - torch.amax(val, dim=-1, keepdim=True)) / temp
+    e = torch.exp(z)
+    denom = e[:, 0]
+    for j in range(1, k):
+        denom = denom + e[:, j]
+    c = e / torch.clamp_min(denom, 1e-30)[:, None]
+    fused = alpha * c + beta * n - gamma * u - delta * r
+    if tool_aff is not None:
+        fused = fused + eps * _gather(tool_aff, top_i)
+    s = torch.where(valid, fused, NEG)
+    if tool_dead is not None:
+        s = torch.where(_gather(tool_dead, top_i) > 0.0, NEG, s)
+    best = torch.argmax(s, dim=-1, keepdim=True)             # first max wins
+
+    def take(a):
+        return torch.gather(a, -1, best)[:, 0]
+
+    return take(top_i).to(torch.int32), take(c), take(n), take(s)
+
+
+def candidate_mask(tool_server: torch.Tensor, cand_servers: torch.Tensor) -> torch.Tensor:
+    """[n_q, n_tools] bool: does the tool's host server sit among the
+    query's stage-1 candidates?"""
+    return torch.any(
+        tool_server[None, None, :] == cand_servers[:, :, None], dim=1
+    )
+
+
+def fused_score_select_ref(
+    q_tool: torch.Tensor,        # [n_q, V]
+    w_tool: torch.Tensor,        # [n_tools, V]
+    tool_server: torch.Tensor,   # [n_tools] int
+    cand_servers: torch.Tensor,  # [n_q, top_s] int
+    tool_qos: torch.Tensor,
+    tool_load: Optional[torch.Tensor] = None,
+    tool_dead: Optional[torch.Tensor] = None,
+    q_rerank: Optional[torch.Tensor] = None,
+    *,
+    k: int,
+    alpha,
+    beta,
+    gamma=0.0,
+    temp: float = 1.0,
+    tool_rtt: Optional[torch.Tensor] = None,
+    delta=0.0,
+    tool_aff: Optional[torch.Tensor] = None,
+    eps: float = 0.0,
+):
+    """Plain version of the fused kernel: materialise the stage-2 score
+    matrix (BM25 product + candidate-server mask) and feed it to
+    `fused_select_ref`, the unfused two-pass pipeline the kernel replaces."""
+    t = bm25_scores(w_tool, q_tool)
+    sel = torch.where(candidate_mask(tool_server, cand_servers), t, NEG)
+    val = bm25_scores(w_tool, q_rerank) if q_rerank is not None else sel
+    return fused_select_ref(
+        sel, val, tool_qos, tool_load, tool_dead,
+        k=k, alpha=alpha, beta=beta, gamma=gamma, temp=temp,
+        tool_rtt=tool_rtt, delta=delta, tool_aff=tool_aff, eps=eps,
+    )

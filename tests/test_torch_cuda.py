@@ -1,0 +1,147 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here carries the ``cuda`` marker and skips without a CUDA card.  This file imports neither
+JAX nor the reference, so it also runs on a machine that has only PyTorch:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+BM25 and the fused stage 2 sum in the same order as their plain versions
+and must agree bit for bit at softmax temperature 1 (the engine's
+default).  At another temperature PyTorch divides by the Python scalar as
+a multiply by its reciprocal while the kernel divides, so C and S agree
+within rtol 2e-6 / atol 2e-7 there; QoS sums in another order and agrees
+within the same tolerance.  Decisions are always exact.  A CUDA tensor
+must never reach a plain version.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import bm25, dataset, qos
+from repro_torch.core.batch_routing import make_engine
+from repro_torch.core.routing import RoutingConfig, ToolIndex
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as kref
+
+RTOL, ATOL = 2e-6, 2e-7
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _fleet(rng, dev, n_q, V, n_srv, n_t, top_s):
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    q = t(rng.poisson(0.4, (n_q, V)).astype(np.float32))
+    qr = t(rng.poisson(0.4, (n_q, V)).astype(np.float32))
+    w = t((rng.random((n_t, V)) * (rng.random((n_t, V)) < 0.2)).astype(np.float32))
+    ts = t(np.sort(rng.integers(0, n_srv, n_t)).astype(np.int32))
+    cand = t(np.stack([rng.choice(n_srv, top_s, replace=False) for _ in range(n_q)])
+             .astype(np.int32))
+    return q, qr, w, ts, cand
+
+
+@pytest.mark.parametrize("n_q,n_d,V", [(1, 1, 1), (5, 70, 33), (130, 65, 17), (64, 300, 520)])
+def test_bm25_kernel_bit_equal_to_plain(cuda, n_q, n_d, V):
+    rng = np.random.default_rng(V)
+    q = torch.from_numpy(rng.poisson(0.4, (n_q, V)).astype(np.float32)).to(cuda)
+    w = torch.from_numpy(rng.random((n_d, V)).astype(np.float32)).to(cuda)
+    w[n_d // 2:] = w[0].clone()
+    got = ops.bm25_scores(q, w)
+    assert torch.equal(got, bm25.bm25_scores(w, q))
+    assert torch.equal(got[:, n_d // 2:], got[:, :1].expand(-1, n_d - n_d // 2))
+
+
+@pytest.mark.parametrize("T", [1, 20, 64, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qos_kernel_matches_plain(cuda, T, dtype):
+    rng = np.random.default_rng(T)
+    lat = rng.uniform(5.0, 400.0, (333, T)).astype(np.float32)
+    lat[::5, -1] = 1200.0
+    lat[1::4, -min(T, 3):] = 900.0
+    x = torch.from_numpy(lat).to(cuda).to(dtype)
+    torch.testing.assert_close(ops.qos_scores(x), qos.network_score(x), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("variant", ["broadcast", "per_query", "bf16", "rerank_live_aff",
+                                     "all_dead", "k_large", "temp"])
+def test_fused_kernel_matches_plain(cuda, variant):
+    rng = np.random.default_rng(len(variant))
+    q, qr, w, ts, cand = _fleet(rng, cuda, 37, 96, 300, 2 * 512 + 17, 6)
+    n_q, n_t = q.shape[0], w.shape[0]
+    shape = (n_q, n_t) if variant == "per_query" else (n_t,)
+    qos_row = torch.rand(shape, device=cuda) * 2 - 1
+    load = torch.rand(shape, device=cuda) * 2
+    rtt = torch.rand(shape, device=cuda)
+    dead = (torch.rand(shape, device=cuda) < (1.1 if variant == "all_dead" else 0.2)).float()
+    kw = dict(k=40 if variant == "k_large" else 8, alpha=0.6, beta=0.3, gamma=0.2, delta=0.1,
+              temp=0.7 if variant == "temp" else 1.0, tool_rtt=rtt)
+    qq, ww, rr = q, w, None
+    if variant == "bf16":
+        qq, ww = q.bfloat16(), w.bfloat16()
+    if variant == "rerank_live_aff":
+        live = torch.tensor([0.45, 0.55, 0.3, 0.2], device=cuda)
+        kw.update(alpha=live[0], beta=live[1], gamma=live[2], delta=live[3],
+                  tool_aff=torch.rand(shape, device=cuda), eps=0.25)
+        rr = qr
+    got = ops.fused_score_select(qq, ww, ts, cand, qos_row, load, dead, rr, **kw)
+    want = kref.fused_score_select_ref(qq, ww, ts, cand, qos_row, load, dead, rr, **kw)
+    assert torch.equal(got[0], want[0]), variant
+    for a, b in zip(got[1:], want[1:]):
+        if variant == "temp":
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+        else:
+            assert torch.equal(a, b), variant
+
+
+def test_ops_never_take_the_plain_path_on_cuda(cuda, monkeypatch):
+    rng = np.random.default_rng(1)
+    q, qr, w, ts, cand = _fleet(rng, cuda, 20, 64, 200, 700, 5)
+    lat = torch.rand((200, 30), device=cuda) * 300
+
+    def plain_called(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    monkeypatch.setattr(ops, "_bm25_plain", plain_called)
+    monkeypatch.setattr(ops, "network_score", plain_called)
+    monkeypatch.setattr(kref, "fused_score_select_ref", plain_called)
+    ops.reset_launches()
+    ops.bm25_scores(q, w)
+    ops.qos_scores(lat)
+    ops.fused_score_select(q, w, ts, cand, torch.zeros(700, device=cuda), q_rerank=qr,
+                           k=5, alpha=1.0, beta=0.0)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"bm25_scores": 1, "qos_scores": 1, "fused_score_select": 1}
+    with pytest.raises(ValueError, match="mixed devices"):
+        ops.bm25_scores(q, w.cpu())
+
+
+def test_engine_kernel_path_equals_plain_path(cuda):
+    servers = dataset.mock_cluster(dataset.build_server_pool(0), n_per_template=20)
+    index = ToolIndex(servers)
+    cfg = RoutingConfig(top_s=8, top_k=8)
+    texts = [q.text for q in dataset.build_query_dataset(n=40, seed=1)]
+    rng = np.random.default_rng(2)
+    n = len(servers)
+    lat = rng.uniform(20, 300, (n, 48)).astype(np.float32)
+    lat[::9, -1] = 1200.0
+    ops_kw = dict(server_load=rng.random(n).astype(np.float32),
+                  telemetry_age_s=(rng.random(n) * 600).astype(np.float32),
+                  failed_mask=rng.random(n) < 0.1,
+                  client_rtt_ms=(rng.random(n) * 300).astype(np.float32),
+                  affinity=rng.random(n).astype(np.float32))
+    for algo in ("rag", "rerank_rag", "sonar", "sonar_ft", "sonar_session"):
+        a = make_engine(algo, servers, cfg, index=index).route_texts(texts, lat, **ops_kw)
+        b = make_engine(algo, servers, cfg, index=index, device="cuda",
+                        use_kernels=False).route_texts(texts, lat, **ops_kw)
+        np.testing.assert_array_equal(a.tool_idx, b.tool_idx, err_msg=algo)
+        np.testing.assert_array_equal(a.server_idx, b.server_idx, err_msg=algo)
+        for x, y in ((a.expertise, b.expertise), (a.network, b.network), (a.fused, b.fused)):
+            np.testing.assert_allclose(x, y, rtol=RTOL, atol=ATOL, err_msg=algo)

@@ -1,0 +1,273 @@
+"""The port's kernel entry points (`repro_torch.kernels.ops`) against the JAX
+reference's, on the CPU.
+
+Here the port's wrappers run their plain PyTorch versions (the tensors lie
+on the CPU); the reference runs its Pallas kernels in interpret mode and
+its jnp oracles.  The fused stage-2 cases mirror `tests/test_score_fuse.py`
+and add the live-weight, affinity and per-query-row variants.  Decisions
+must match exactly; C, N and S within rtol 2e-6 / atol 2e-7.
+The CUDA kernels themselves are tested on the card by
+`tests/test_torch_cuda.py`.
+"""
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import quantize as jquantize
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.core import qos
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels import bm25_score, qos_score, score_fuse
+from repro_torch.kernels import ref as kref
+
+RTOL, ATOL = 2e-6, 2e-7
+STRIPE, QUERY_TILE = 512, 8
+
+
+def _fleet(rng, n_q, V, n_srv, n_t, top_s, sparsity=0.2):
+    q = rng.poisson(0.4, (n_q, V)).astype(np.float32)
+    qr = rng.poisson(0.4, (n_q, V)).astype(np.float32)
+    w = (rng.random((n_t, V)) * (rng.random((n_t, V)) < sparsity)).astype(np.float32)
+    ts = np.sort(rng.integers(0, n_srv, n_t)).astype(np.int32)
+    cand = np.stack([rng.choice(n_srv, top_s, replace=False) for _ in range(n_q)]).astype(np.int32)
+    return q, qr, w, ts, cand
+
+
+def _t(x):
+    return None if x is None else torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _port(q, w, ts, cand, qos_row, qr=None, **kw):
+    kw = {k: (_t(v) if isinstance(v, np.ndarray) else v) for k, v in kw.items()}
+    return ops.fused_score_select(_t(q), _t(w), _t(ts), _t(cand), _t(qos_row),
+                                  q_rerank=_t(qr), **kw)
+
+
+def _check(port_out, ref_out, ctx=""):
+    i1, c1, n1, s1 = (np.asarray(x) for x in port_out)
+    i2, c2, n2, s2 = (np.asarray(x) for x in ref_out)
+    np.testing.assert_array_equal(i1, i2, err_msg=f"{ctx}: tool_idx")
+    for a, b, nm in ((c1, c2, "C"), (n1, n2, "N"), (s1, s2, "S")):
+        np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL, err_msg=f"{ctx}: {nm}")
+
+
+def _both(q, w, ts, cand, qos_row, qr=None, **kw):
+    """Port vs the reference's Pallas kernel (interpret) and its jnp oracle."""
+    got = _port(q, w, ts, cand, qos_row, qr, **kw)
+    _check(got, jops.fused_score_select(q, w, ts, cand, qos_row, q_rerank=qr,
+                                        interpret=True, **kw), "vs pallas")
+    _check(got, jref.fused_score_select_ref(jnp.asarray(q), jnp.asarray(w), jnp.asarray(ts),
+                                            jnp.asarray(cand), qos_row, q_rerank=qr, **kw),
+           "vs oracle")
+    return got
+
+
+@pytest.mark.parametrize("rerank", [False, True])
+@pytest.mark.parametrize(
+    "extras",
+    [
+        {},
+        {"gamma": 0.4, "with_load": True},
+        {"gamma": 0.4, "delta": 0.3, "with_load": True, "with_rtt": True, "with_dead": True},
+    ],
+)
+def test_parity_single_stripe(rerank, extras):
+    rng = np.random.default_rng(0)
+    n_q, n_t = 13, 45
+    q, qr, w, ts, cand = _fleet(rng, n_q, 96, 17, n_t, 5)
+    qos_row = rng.uniform(-1, 1, n_t).astype(np.float32)
+    kw = dict(k=8, alpha=0.6, beta=0.3, temp=0.7,
+              gamma=extras.get("gamma", 0.0), delta=extras.get("delta", 0.0))
+    if extras.get("with_load"):
+        kw["tool_load"] = rng.uniform(0, 2, (n_q, n_t)).astype(np.float32)
+    if extras.get("with_rtt"):
+        kw["tool_rtt"] = rng.uniform(0, 1, n_t).astype(np.float32)
+    if extras.get("with_dead"):
+        kw["tool_dead"] = (rng.random(n_t) < 0.15).astype(np.float32)
+    _both(q, w, ts, cand, qos_row, qr if rerank else None, **kw)
+
+
+def test_parity_multi_stripe_with_skipping():
+    rng = np.random.default_rng(1)
+    n_q, n_t = 16, 3 * STRIPE - 137
+    q, _qr, w, ts, cand = _fleet(rng, n_q, 128, 400, n_t, 4, sparsity=0.1)
+    qos_row = rng.uniform(-1, 1, n_t).astype(np.float32)
+    _both(q, w, ts, cand, qos_row, k=16, alpha=0.6, beta=0.3, gamma=0.2, temp=1.0,
+          tool_load=rng.uniform(0, 2, n_t).astype(np.float32),
+          tool_dead=(rng.random(n_t) < 0.3).astype(np.float32))
+
+
+def test_tie_heavy_integer_scores():
+    rng = np.random.default_rng(2)
+    n_q, n_t, n_srv = 16, STRIPE + 200, 50
+    w = rng.integers(0, 2, (n_t, 64)).astype(np.float32)
+    q = rng.integers(0, 2, (n_q, 64)).astype(np.float32)
+    ts = np.sort(rng.integers(0, n_srv, n_t)).astype(np.int32)
+    cand = np.stack([rng.choice(n_srv, 6, replace=False) for _ in range(n_q)]).astype(np.int32)
+    _both(q, w, ts, cand, np.zeros(n_t, np.float32), k=16, alpha=1.0, beta=0.0)
+
+
+def test_k_exceeds_candidate_tools():
+    rng = np.random.default_rng(3)
+    q, _qr, w, ts, cand = _fleet(rng, 8, 64, 20, 30, 2)
+    _both(q, w, ts, cand, rng.uniform(-1, 1, 30).astype(np.float32), k=25, alpha=0.6, beta=0.3)
+
+
+def test_all_candidates_dead():
+    rng = np.random.default_rng(4)
+    q, _qr, w, ts, cand = _fleet(rng, 8, 64, 12, 40, 3)
+    _both(q, w, ts, cand, rng.uniform(-1, 1, 40).astype(np.float32), k=8, alpha=0.6, beta=0.3,
+          tool_dead=np.ones(40, np.float32))
+
+
+def test_quantized_bf16_operands():
+    rng = np.random.default_rng(5)
+    n_t = STRIPE + 64
+    q, _qr, w, ts, cand = _fleet(rng, 16, 128, 100, n_t, 4)
+    qb = jquantize.round_weights(q, "bfloat16")
+    wb = jquantize.round_weights(w, "bfloat16")
+    qos_row = jquantize.quantize_bf16(rng.uniform(-1, 1, n_t)).astype(np.float32)
+    kw = dict(k=12, alpha=0.6, beta=0.3)
+    got = _both(qb, wb, ts, cand, qos_row, **kw)
+    # physically bf16 tensors widen exactly to the same decisions
+    got_b = ops.fused_score_select(_t(qb).bfloat16(), _t(wb).bfloat16(), _t(ts), _t(cand),
+                                   _t(qos_row), **kw)
+    for a, b in zip(got, got_b):
+        assert torch.equal(a, b)
+
+
+def test_ragged_query_rows():
+    rng = np.random.default_rng(6)
+    for n_q in (1, QUERY_TILE - 1, QUERY_TILE + 3):
+        q, _qr, w, ts, cand = _fleet(rng, n_q, 64, 15, 33, 3)
+        _both(q, w, ts, cand, rng.uniform(-1, 1, 33).astype(np.float32), k=6,
+              alpha=0.6, beta=0.3)
+
+
+@pytest.mark.parametrize("per_query", [False, True])
+def test_affinity_and_per_query_rows(per_query):
+    rng = np.random.default_rng(7)
+    n_q, n_t = 9, 70
+    q, qr, w, ts, cand = _fleet(rng, n_q, 48, 30, n_t, 4)
+    shape = (n_q, n_t) if per_query else (n_t,)
+    rows = {nm: rng.uniform(0, 1, shape).astype(np.float32)
+            for nm in ("qos", "tool_load", "tool_rtt", "tool_aff")}
+    rows["tool_dead"] = (rng.random(shape) < 0.2).astype(np.float32)
+    qos_row = rows.pop("qos")
+    _both(q, w, ts, cand, qos_row, qr, k=7, alpha=0.5, beta=0.5, gamma=0.35, delta=0.4,
+          eps=0.25, temp=1.0, **rows)
+
+
+def test_live_weights_match_static_and_reference():
+    """Fusion weights as tensors (the live [alpha, beta, gamma, delta] the
+    learned-weight router will feed) give the static-weight decisions."""
+    rng = np.random.default_rng(8)
+    n_q, n_t = 10, 60
+    q, _qr, w, ts, cand = _fleet(rng, n_q, 40, 25, n_t, 4)
+    qos_row = rng.uniform(-1, 1, n_t).astype(np.float32)
+    load = rng.uniform(0, 2, n_t).astype(np.float32)
+    rtt = rng.uniform(0, 1, n_t).astype(np.float32)
+    wv = np.array([0.45, 0.55, 0.3, 0.2], np.float32)
+    static = dict(alpha=float(wv[0]), beta=float(wv[1]), gamma=float(wv[2]), delta=float(wv[3]))
+    live_t = torch.from_numpy(wv)
+    got = _port(q, w, ts, cand, qos_row, k=6, tool_load=load, tool_rtt=rtt,
+                alpha=live_t[0], beta=live_t[1], gamma=live_t[2], delta=live_t[3])
+    _check(got, _port(q, w, ts, cand, qos_row, k=6, tool_load=load, tool_rtt=rtt, **static),
+           "live vs static")
+    live_j = jnp.asarray(wv)
+    _check(got, jops.fused_score_select(
+        q, w, ts, cand, qos_row, tool_load=load, tool_rtt=rtt, k=6, interpret=True,
+        alpha=live_j[0], beta=live_j[1], gamma=live_j[2], delta=live_j[3]), "vs pallas live")
+
+
+def test_fused_select_ref_matches_reference_oracle():
+    rng = np.random.default_rng(9)
+    n_q, n_t = 7, 50
+    sel = rng.integers(0, 4, (n_q, n_t)).astype(np.float32)       # heavy ties
+    sel[rng.random((n_q, n_t)) < 0.5] = -np.inf
+    val = rng.random((n_q, n_t)).astype(np.float32)
+    qos_row = rng.uniform(-1, 1, (n_q, n_t)).astype(np.float32)
+    dead = (rng.random(n_t) < 0.3).astype(np.float32)
+    kw = dict(k=9, alpha=0.6, beta=0.4, gamma=0.1, temp=0.8)
+    load = rng.random(n_t).astype(np.float32)
+    got = kref.fused_select_ref(_t(sel), _t(val), _t(qos_row), _t(load), _t(dead), **kw)
+    want = jref.fused_select_ref(jnp.asarray(sel), jnp.asarray(val), jnp.asarray(qos_row),
+                                 jnp.asarray(load), jnp.asarray(dead), **kw)
+    _check(got, want)
+
+
+@pytest.mark.parametrize("n_q,n_d,V", [(1, 1, 1), (5, 70, 33), (130, 9, 513), (3, 11, 7)])
+def test_bm25_scores_ragged_shapes(n_q, n_d, V):
+    rng = np.random.default_rng(n_d)
+    q = rng.poisson(0.5, (n_q, V)).astype(np.float32)
+    w = (rng.random((n_d, V)) * (rng.random((n_d, V)) < 0.3)).astype(np.float32)
+    w[n_d // 2:] = w[0]                               # replica rows tie exactly
+    got = ops.bm25_scores(_t(q), _t(w)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jops.bm25_scores(q, w, interpret=True)),
+                               rtol=RTOL, atol=ATOL)
+    assert np.all(got[:, n_d // 2:] == got[:, :1])
+
+
+def test_qos_scores_dispatches_to_plain_on_cpu():
+    rng = np.random.default_rng(10)
+    lat = rng.uniform(5, 1200, (37, 45)).astype(np.float32)
+    got = ops.qos_scores(_t(lat)).numpy()
+    assert np.array_equal(got, qos.network_score(_t(lat)).numpy())
+    np.testing.assert_allclose(got, np.asarray(jops.qos_scores(lat, interpret=True)),
+                               rtol=RTOL, atol=ATOL)
+    assert ops.launch_counts() == {"bm25_scores": 0, "qos_scores": 0, "fused_score_select": 0}
+
+
+def test_kernel_launchers_refuse_cpu_tensors_without_building():
+    """A launcher never runs a plain version: a CPU tensor is refused
+    before any library is looked up."""
+    x = torch.zeros((2, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        bm25_score.bm25_scores_cuda(x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        qos_score.qos_scores_cuda(x)
+    with pytest.raises(ValueError, match="CUDA"):
+        score_fuse.fused_score_select_cuda(
+            x, x, torch.zeros(3, dtype=torch.int32), torch.zeros((2, 1), dtype=torch.int32),
+            {"tool_qos": torch.zeros(3)}, None, k=1, alpha=1.0, beta=0.0, gamma=0.0,
+            delta=0.0, eps=0.0, temp=1.0,
+        )
+    assert _build._LIBS == {}
+
+
+def test_importing_builds_nothing():
+    """Importing every kernel module and routing on the CPU never starts a
+    compiler or loads a library."""
+    code = (
+        "import subprocess\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError('a process was started')\n"
+        "subprocess.Popen = refuse\n"
+        "from repro_torch.kernels import _build, ops, bm25_score, qos_score, score_fuse, ref\n"
+        "from repro_torch.core import dataset\n"
+        "from repro_torch.core.batch_routing import make_engine\n"
+        "s = dataset.build_server_pool(0)\n"
+        "e = make_engine('sonar', s, device='cpu', use_kernels=True)\n"
+        "d = e.route_texts(['search the web'])\n"
+        "assert _build._LIBS == {}\n"
+        "assert ops.launch_counts() == {'bm25_scores': 0, 'qos_scores': 0,"
+        " 'fused_score_select': 0}\n"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def test_qos_kernel_constants():
+    """The host-side constants the QoS kernel reads: real window length,
+    carry, centred positions' sum of squares (the reference's values)."""
+    p = qos.QosParams(window=32, ewma_alpha=0.3)
+    window, params = qos_score.kernel_params(p, 20)
+    vals = list(params)
+    assert window == 20 and vals[15] == 20.0
+    x = np.arange(20, dtype=np.float32) - 19 + (20 - 1) / 2.0
+    assert vals[16] == float(np.sum(x * x))
+    assert vals[5] == float(np.float32(0.7 ** 20))
