@@ -4,21 +4,36 @@
     python3 chip_smoke.py --rehearse   # the same control flow on the CPU,
                                        # tiny fleet, no kernels; exits 3
 
-Drives the port's main path, ``make_engine(algo, fleet).route_texts(...)``,
-for the eight hand-tuned algorithms at a 10,005-server mock cluster
-(20,010 tools) and 256-query batches, and holds it to account:
+Drives the port's two paths through the entry points a user calls, and
+holds them to account.  The single-device path,
+``make_engine(algo, fleet).route_texts(...)``, runs the eight hand-tuned
+algorithms at a 10,005-server mock cluster (20,010 tools) and 256-query
+batches.  The mega-fleet path,
+``make_sharded_engine(algo, index=mega_fleet_index(1_000_000)).route_texts(...)``,
+runs all nine algorithms (SONAR-ADAPT included) over 4 emulated shards of a
+template-tiled million-server fleet with bf16 weights and compact telemetry
+(the ``--max`` point of ``benchmarks/mega_fleet.py``).
 
-1. set-up: TF32 off, the card's name and power limit, the fleet, the
-   queries and a seeded telemetry window;
+1. set-up: TF32 off, the card's name and power limit, both fleets, the
+   queries and seeded telemetry;
 2. each CUDA kernel (built from ``src/repro_torch/csrc`` on first use)
-   against its plain PyTorch version at the path's shapes;
-3. the main path with the launch counters set to 0: every kernel-path
-   decision equal to the plain path's on the same card, every counter
-   risen by exactly one launch per route, a per-query telemetry step,
-   a failover loop, and a sample of decisions against the scalar router;
+   against its plain PyTorch version at its paths' shapes (``fused_select``
+   at the mega tail's [256, 16], a dense-shard merge [256, 4 x 16] and the
+   full tool axis [256, 20010]);
+3. the single-device path with the launch counters set to 0: every
+   kernel-path decision equal to the plain path's on the same card, every
+   counter risen by exactly one launch per route, a per-query telemetry
+   step, a failover loop, and a sample of decisions against the scalar
+   router;
+3b. the mega-fleet path with the counters set to 0 again: nine algorithms
+   on the kernel path equal to the plain path, ``fused_select`` launched
+   once per sharded route; then the sharded engine against the densified
+   single engine at 100,000 servers, and SONAR-ADAPT feedback rounds
+   (lr > 0) on both engines, kernel path against plain path;
 4. times: each kernel's median over CUDA-event-timed launches beside its
    plain version, one library call where there is one, and its bound; the
-   end-to-end ``route_texts`` time per batch.
+   end-to-end ``route_texts`` time per batch on both paths; a profile of one
+   route of each path.
 
 The line before the last is the ``kernels`` JSON object; the last is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
@@ -40,15 +55,18 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM, f32 outside the tensor cores
 ALGOS = ("rag", "rerank_rag", "prag", "sonar", "sonar_lb", "sonar_ft",
          "sonar_geo", "sonar_session")
+MEGA_ALGOS = ALGOS + ("sonar_adapt",)
 REPLACES = {
     "bm25_scores": "src/repro/kernels/bm25_score.py:31",
     "qos_scores": "src/repro/kernels/qos_score.py:32",
     "fused_score_select": "src/repro/kernels/score_fuse.py:53",
+    "fused_select": "src/repro/kernels/select_fuse.py:66",
 }
 SOURCES = {
     "bm25_scores": "src/repro_torch/csrc/bm25_score.cu",
     "qos_scores": "src/repro_torch/csrc/qos_score.cu",
     "fused_score_select": "src/repro_torch/csrc/score_fuse.cu",
+    "fused_select": "src/repro_torch/csrc/select_fuse.cu",
 }
 
 
@@ -73,7 +91,11 @@ def main(rehearse: bool) -> None:
     import torch
 
     from repro_torch.core import dataset
+    from repro_torch.core.adaptive import AdaptConfig, decision_feats
     from repro_torch.core.batch_routing import make_engine
+    from repro_torch.core.mesh_routing import make_sharded_engine
+    from repro_torch.core.quantize import quantize_bf16
+    from repro_torch.traffic import mega_fleet_index
     from repro_torch.core.qos import network_score
     from repro_torch.core.routing import RoutingConfig, ToolIndex, make_router
     from repro_torch.core.bm25 import bm25_scores as bm25_plain, topk
@@ -83,11 +105,13 @@ def main(rehearse: bool) -> None:
     if rehearse:
         dev = torch.device("cpu")
         n_per_template, n_q, n_q_perq, reps = 2, 24, 8, 3
+        n_mega, n_par = 2_000, 1_000
     else:
         if not torch.cuda.is_available():
             fail("torch.cuda.is_available() is False: this script needs a CUDA card")
         dev = torch.device("cuda")
         n_per_template, n_q, n_q_perq, reps = 667, 256, 64, 25
+        n_mega, n_par = 1_000_000, 100_000
 
     def sync():
         if dev.type == "cuda":
@@ -135,6 +159,43 @@ def main(rehearse: bool) -> None:
     lat_perq = torch.rand((n_q_perq, n_s, T), generator=gen, device=dev) * 280.0 + 20.0
     lat_perq[:, ::17, -1] = 1500.0
     lat_perq[:, ::11, -6:] = 900.0
+
+    # the mega fleet: template-tiled, bf16 weights rounded once, 4 shards;
+    # compact telemetry, a seeded [16, 32] window rounded to bf16 once and
+    # mapped to servers by a Knuth stride (traffic/fleet.py's tel_map)
+    t0 = time.perf_counter()
+    mindex = mega_fleet_index(n_mega, weights_dtype="bfloat16")
+    mcfg = RoutingConfig(top_s=8, top_k=16)
+    mrng = np.random.default_rng(1)
+    compact = mrng.uniform(20.0, 300.0, (16, 32)).astype(np.float32)
+    compact[::5, -1] = 1200.0                                       # offline templates
+    compact[1::4, -6:] = 900.0                                      # outage risk
+    compact = quantize_bf16(compact)
+    tel_map = (np.arange(n_mega, dtype=np.int64) * 2654435761) % 16
+    m_load = (mrng.random(n_mega) * 1.5).astype(np.float32)
+    m_age = (mrng.random(n_mega) * 400.0).astype(np.float32)
+    m_failed = mrng.random(n_mega) < 0.05
+    m_region_rtt = (mrng.random((6, n_mega)) * 300.0).astype(np.float32)
+    m_regions = mrng.integers(-1, 6, n_q).astype(np.int32)
+    m_aff = (mrng.random(n_mega) * (mrng.random(n_mega) < 0.1)).astype(np.float32)
+    log(f"mega fleet: {mindex.n_servers} servers, {mindex.n_tools} tools, "
+        f"{len(mindex.templates)} templates, V_s {mindex.server_corpus.weights.shape[1]}, "
+        f"V_t {mindex.tool_corpus.weights.shape[1]}, bf16 weights, 4 shards, "
+        f"top_s 8, top_k 16, built in {time.perf_counter() - t0:.3f} s")
+
+    def mextras(algo, n=n_mega):
+        """The mega path's operands of each algorithm at the first n servers."""
+        load_, age_, failed_ = m_load[:n], m_age[:n], m_failed[:n]
+        geo = dict(client_region=m_regions, region_rtt_ms=m_region_rtt[:, :n])
+        ex = {
+            "sonar_lb": dict(server_load=load_),
+            "sonar_ft": dict(server_load=load_, telemetry_age_s=age_, failed_mask=failed_),
+            "sonar_geo": dict(server_load=load_, **geo),
+            "sonar_session": dict(server_load=load_, affinity=m_aff[:n], **geo),
+            "sonar_adapt": dict(server_load=load_, telemetry_age_s=age_, failed_mask=failed_,
+                                **geo),
+        }.get(algo, {})
+        return dict(ex, telemetry_templates=(compact, tel_map[:n]))
 
     def close(a, b, what):
         a, b = a.float().cpu(), b.float().cpu()
@@ -213,6 +274,70 @@ def main(rehearse: bool) -> None:
             log(f"phase 2: fused_score_select [{name}] decisions equal, "
                 f"max abs err {max(errs[-3:])}")
         max_err["fused_score_select"] = max(errs)
+
+        # fused_select at the shapes its paths give it.  The operands of the
+        # mega tail [256, 16] and of a dense-shard merge [256, 4 x 16] are
+        # captured from sharded routes; the full tool axis [256, 20010] is
+        # the single engine's materialised stage-2 matrix.
+        captured = {}
+
+        def capture(label, eng, **kw):
+            real = ops.fused_select
+
+            def grab(*a, **k):
+                captured[label] = (a, k)
+                return real(*a, **k)
+
+            ops.fused_select = grab
+            try:
+                return eng.route_texts(batches[0], **kw)
+            finally:
+                ops.fused_select = real
+
+        ad = make_sharded_engine("sonar_adapt", cfg=mcfg, n_shards=4, index=mindex, device=dev,
+                                 use_kernels=True, adapt=AdaptConfig(lr=0.5))
+        for i in range(8):
+            ad.observe_feedback(100.0 + 150.0 * i, ok=i % 3 != 0,
+                                feats=decision_feats(0.3, 0.5 - 0.1 * i, 0.2, 0.1))
+        capture("mega sonar_adapt: per-query rows, dead, rtt, live weights", ad,
+                **mextras("sonar_adapt"))
+        capture("mega sonar_session: per-query rows, rtt, affinity",
+                make_sharded_engine("sonar_session", cfg=mcfg, n_shards=4, index=mindex,
+                                    device=dev, use_kernels=True), **mextras("sonar_session"))
+        ft_kw = dict(latency_hist=lat, server_load=load, telemetry_age_s=age, failed_mask=failed)
+        d_sh = capture("dense-shard merge sonar_ft: per-query rows, dead",
+                       make_sharded_engine("sonar_ft", servers, mcfg, n_shards=4, index=index,
+                                           device=dev, use_kernels=True), **ft_kw)
+        mega_a, mega_k = captured["mega sonar_adapt: per-query rows, dead, rtt, live weights"]
+        sel_full = torch.where(kref.candidate_mask(ts, cand), ops.bm25_scores(q_t, w_t), kref.NEG)
+        val_full = ops.bm25_scores(q_r, w_t)
+        cases = dict(captured)
+        cases["mega sonar_adapt, bf16 operands"] = (
+            (mega_a[0].bfloat16(), mega_a[1].bfloat16(), *mega_a[2:]), mega_k)
+        cases["full axis: broadcast rows, dead, rtt, k 16"] = (
+            (sel_full, sel_full, tool_qos, tool_load, tool_dead),
+            dict(k=16, alpha=0.5, beta=0.5, gamma=0.35, delta=0.4, tool_rtt=tool_rtt, temp=1.0))
+        cases["full axis: per-query rows, rerank, affinity, live weights, k 128"] = (
+            (sel_full, val_full, per_q(tool_qos), per_q(tool_load),
+             (per_q(tool_dead) > 0.5).float()),
+            dict(k=128, alpha=live[0], beta=live[1], gamma=live[2], delta=live[3],
+                 tool_rtt=per_q(tool_rtt), tool_aff=per_q(tool_rtt) * 0.5, eps=0.25, temp=1.0))
+        cases["full axis: bf16 operands, k 128"] = (
+            (sel_full.bfloat16(), val_full.bfloat16(), tool_qos, tool_load, tool_dead),
+            dict(k=128, alpha=0.5, beta=0.5, gamma=0.35, temp=1.0))
+        errs = []
+        for name, (a, k) in cases.items():
+            got = ops.fused_select(*a, **k)
+            want = kref.fused_select_ref(*a, **k)
+            sync()
+            if not torch.equal(got[0].cpu(), want[0].cpu()):
+                fail(f"fused_select {name}: decisions differ from the plain version")
+            errs += [close(g, w, f"fused_select {name}") for g, w in zip(got[1:], want[1:])]
+            log(f"phase 2: fused_select [{name}] {list(a[0].shape)} k {k['k']}: decisions "
+                f"equal, max abs err {max(errs[-3:])}")
+        max_err["fused_select"] = max(errs)
+        d_single = make_engine("sonar_ft", servers, mcfg, device=dev, index=index).route_texts(
+            batches[0], **ft_kw)
     log(f"phase 2: kernels agree with their plain versions: {max_err}")
 
     # ------------------------------------------------------------------ 3
@@ -236,7 +361,7 @@ def main(rehearse: bool) -> None:
             return dict(server_load=load, client_rtt_ms=rtt_rows, affinity=affinity)
         return {}
 
-    def same(dk, dp, what):
+    def same(dk, dp, what, n_servers=n_s):
         if not (np.array_equal(dk.server_idx, dp.server_idx)
                 and np.array_equal(dk.tool_idx, dp.tool_idx)):
             bad = int(np.sum(dk.tool_idx != dp.tool_idx))
@@ -248,7 +373,7 @@ def main(rehearse: bool) -> None:
             if not np.all(np.isfinite(a)):
                 fail(f"{what}: non-finite {nm}")
         if dk.server_idx.shape != (len(dk),) or dk.server_idx.min() < 0 \
-                or dk.server_idx.max() >= n_s:
+                or dk.server_idx.max() >= n_servers:
             fail(f"{what}: bad decision shape or range")
 
     routes = {"bm25_scores": 0, "qos_scores": 0, "fused_score_select": 0}
@@ -275,7 +400,8 @@ def main(rehearse: bool) -> None:
     log(f"phase 3: main path ran {sum(v for v in routes.values())} kernel calls in "
         f"{time.perf_counter() - t_main:.3f} s; launches {launches}")
     if not rehearse:
-        for name, n in launches.items():
+        for name in routes:
+            n = launches[name]
             if n == 0:
                 fail(f"{name}: the main path never launched its kernel")
             if n != routes[name]:
@@ -312,6 +438,104 @@ def main(rehearse: bool) -> None:
                     and not (d.fused == -np.inf and dk.fused[i] <= kref.NEG / 2):
                 fail(f"{algo} query {i}: fused score {dk.fused[i]} vs scalar {d.fused}")
     log(f"phase 3: the scalar router agrees on the first {n_scalar} queries of every algorithm")
+
+    # ----------------------------------------------------------------- 3b
+    same(d_sh, d_single, "dense-shard engine (4 shards, 10,005 servers) vs single engine")
+    t0 = time.perf_counter()
+    mengines = {
+        algo: (make_sharded_engine(algo, cfg=mcfg, n_shards=4, index=mindex, device=dev),
+               make_sharded_engine(algo, cfg=mcfg, n_shards=4, index=mindex, device=dev,
+                                   use_kernels=False))
+        for algo in MEGA_ALGOS
+    }
+    ek0 = mengines["sonar"][0]
+    if not rehearse and not all(ek.use_kernels for ek, _ in mengines.values()):
+        fail("the sharded engine's use_kernels does not default to True on the card")
+    if not ek0.compact_stage2:
+        fail("the mega fleet did not take the candidate-compacted stage 2")
+    log(f"phase 3b: {2 * len(mengines)} sharded engines built in "
+        f"{time.perf_counter() - t0:.3f} s: {ek0.plan.n_shards} shards of s_pad "
+        f"{ek0.plan.s_pad}, t_pad {ek0.plan.t_pad}, k_slot {ek0._sc.k_slot}")
+    mroutes = {"bm25_scores": 0, "qos_scores": 0, "fused_select": 0}
+    mdec = {}
+    ops.reset_launches()                       # the mega path's count starts here
+    t_main = time.perf_counter()
+    for algo, (ek, _) in mengines.items():
+        mdec[algo] = ek.route_texts(batches[0], **mextras(algo))
+        mroutes["fused_select"] += 1
+        mroutes["bm25_scores"] += 2 + int(ek.rerank)
+        mroutes["qos_scores"] += int(ek.uses_network)
+    sync()
+    mlaunches = ops.launch_counts()            # ... and is read here
+    log(f"phase 3b: mega path ran {len(mengines)} sharded routes in "
+        f"{time.perf_counter() - t_main:.3f} s; launches {mlaunches}")
+    if not rehearse:
+        for name, n in mroutes.items():
+            if mlaunches[name] == 0:
+                fail(f"{name}: the mega path never launched its kernel")
+            if mlaunches[name] != n:
+                fail(f"{name}: {mlaunches[name]} launches for {n} kernel calls on the mega path")
+        if mlaunches["fused_score_select"] != 0:
+            fail("the mega path launched the single engine's fused stage 2")
+    for algo, (_, ep) in mengines.items():
+        same(mdec[algo], ep.route_texts(batches[0], **mextras(algo)), f"mega {algo}", n_mega)
+    picked = {a: int(np.unique(d.server_idx).size) for a, d in mdec.items()}
+    log(f"phase 3b (a): all {len(mengines)} algorithms route {n_mega} servers with every "
+        f"kernel-path decision equal to the plain path's; distinct servers picked {picked}")
+
+    # (c) the sharded engine against the densified single engine
+    t0 = time.perf_counter()
+    pindex = mega_fleet_index(n_par, weights_dtype="bfloat16")
+    dense_view = pindex.densify()
+    hist_par = compact[tel_map[:n_par]]
+    ds = {}
+    for algo in MEGA_ALGOS:
+        ex = mextras(algo, n_par)
+        tel = ex.pop("telemetry_templates")
+        d_sh = make_sharded_engine(algo, cfg=mcfg, n_shards=4, index=pindex, device=dev) \
+            .route_texts(batches[0], telemetry_templates=tel, **ex)
+        d_bk = make_engine(algo, [], mcfg, index=dense_view, device=dev) \
+            .route_texts(batches[0], hist_par, **ex)
+        same(d_sh, d_bk, f"{n_par}-server parity {algo}: sharded vs densified single engine",
+             n_par)
+        ds[algo] = float(np.max(np.abs(d_sh.fused - d_bk.fused)))
+    log(f"phase 3b (c): at {n_par} servers the sharded kernel path equals the densified "
+        f"single engine's kernel path for all {len(MEGA_ALGOS)} algorithms "
+        f"({time.perf_counter() - t0:.2f} s); max |S difference| {ds}")
+
+    # (d) SONAR-ADAPT learning (lr > 0): kernel path against plain path on
+    # both engines over feedback rounds fed identical outcomes
+    acfg = AdaptConfig(lr=0.5)
+    frng = np.random.default_rng(5)
+    adapt_pairs = {
+        f"sharded {n_mega}": (
+            make_sharded_engine("sonar_adapt", cfg=mcfg, n_shards=4, index=mindex, device=dev,
+                                adapt=acfg),
+            make_sharded_engine("sonar_adapt", cfg=mcfg, n_shards=4, index=mindex, device=dev,
+                                adapt=acfg, use_kernels=False),
+            lambda e: e.route_texts(batches[1], **mextras("sonar_adapt"))),
+        f"batched {n_s}": (
+            make_engine("sonar_adapt", servers, cfg, device=dev, index=index, adapt=acfg),
+            make_engine("sonar_adapt", servers, cfg, device=dev, index=index, adapt=acfg,
+                        use_kernels=False),
+            lambda e: e.route_texts(batches[1], lat, load, age, failed, rtt_rows)),
+    }
+    for label, (ek, ep, run) in adapt_pairs.items():
+        w0 = ek.adapt_weights.copy()
+        for rnd in range(3):
+            dk, dp = run(ek), run(ep)
+            same(dk, dp, f"SONAR-ADAPT {label} round {rnd}", max(n_mega, n_s))
+            if not np.allclose(ek.adapt_weights, ep.adapt_weights, rtol=RTOL, atol=ATOL):
+                fail(f"SONAR-ADAPT {label}: weights {ek.adapt_weights} vs {ep.adapt_weights}")
+            for i in range(0, len(dk), 4):
+                lat_ms, ok = float(frng.uniform(50.0, 1500.0)), bool(frng.random() < 0.8)
+                f = decision_feats(dk.expertise[i], dk.network[i], 0.1, 0.05)
+                ek.observe_feedback(lat_ms, ok, feats=f)
+                ep.observe_feedback(lat_ms, ok, feats=f)
+        if np.array_equal(ek.adapt_weights, w0):
+            fail(f"SONAR-ADAPT {label}: the weights never moved")
+        log(f"phase 3b (d): SONAR-ADAPT {label}: 3 feedback rounds, decisions equal, weights "
+            f"{w0.tolist()} -> {ek.adapt_weights.tolist()} (plain {ep.adapt_weights.tolist()})")
 
     # ------------------------------------------------------------------ 4
     def timed(fn, n=reps):
@@ -379,7 +603,22 @@ def main(rehearse: bool) -> None:
             library_ms=None, bound=b_fused,
             shape=f"[{q_t.shape[0]}, {V_t}] x [{w_t.shape[0]}, {V_t}], top_s {cand.shape[1]}, "
                   f"{n_pairs} candidate (query, tool) pairs, {uniq} distinct tools"))
-    per_route = {n: launches[n] / max(routes[n], 1) for n in launches}
+        # fused_select on the mega tail's own operands: each input tensor
+        # read once (sel, val when it is another tensor, the per-query rows,
+        # the live weights) plus 16 bytes out per query; operations: k
+        # selection rounds over the row and the finale
+        sa, sk = mega_a, mega_k
+        ins = {x.data_ptr(): x for x in (*sa, *sk.values()) if isinstance(x, torch.Tensor)}
+        n_qs, n_ts = sa[0].shape
+        b_sel = bound(sum(x.numel() * x.element_size() for x in ins.values()) + 16 * n_qs,
+                      n_qs * (sk["k"] * n_ts + 12 * sk["k"]))
+        rows.append(dict(
+            name="fused_select", ms=timed(lambda: ops.fused_select(*sa, **sk)),
+            plain_ms=timed(lambda: kref.fused_select_ref(*sa, **sk)), library_ms=None,
+            bound=b_sel, shape=f"[{n_qs}, {n_ts}] mega tail (sonar_adapt: per-query rows, "
+                               f"dead, rtt, live weights), k {sk['k']}"))
+    per_route = {n: launches[n] / max(routes[n], 1) for n in routes}
+    per_route["fused_select"] = mlaunches["fused_select"] / max(mroutes["fused_select"], 1)
     for r in rows:
         log(f"phase 4: {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library "
@@ -403,17 +642,29 @@ def main(rehearse: bool) -> None:
             e2e[algo, label] = statistics.median(times)
             log(f"phase 4: route_texts {algo} [{label}] {n_q} queries, shared window: "
                 f"median {e2e[algo, label]:.3f} ms per batch (host clock, {len(times)} runs)")
+    for algo in ("sonar", "sonar_ft"):
+        for label, eng in zip(("kernels", "plain"), mengines[algo]):
+            times = []
+            for _ in range(5 if not rehearse else 2):
+                sync()
+                t = time.perf_counter()
+                eng.route_texts(batches[0], **mextras(algo))
+                sync()
+                times.append((time.perf_counter() - t) * 1e3)
+            log(f"phase 4: sharded route_texts {algo} [{label}] {n_q} queries, {n_mega} "
+                f"servers, 4 shards: median {statistics.median(times):.3f} ms per batch "
+                f"(host clock, {len(times)} runs)")
 
-    if dev.type == "cuda":
-        eng = engines["sonar"][0]
-        enc0 = eng.encode(batches[0])
-        eng.route(enc0, lat)
+    def profile(what, fn):
+        """Wall ms, device busy ms and the top device entries of one call
+        (mean of 3, after a warm-up); annotations are left out."""
+        fn()
         sync()
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             t = time.perf_counter()
             for _ in range(3):
-                eng.route(enc0, lat)
+                fn()
             sync()
             wall = (time.perf_counter() - t) * 1e3 / 3
         dev_us = {}
@@ -426,13 +677,33 @@ def main(rehearse: bool) -> None:
                 dev_us[ev.key] = d / 3
         busy = sum(dev_us.values()) / 1e3
         top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
-        log(f"phase 4: profile of route (sonar, encoded, {n_q} queries): wall {wall:.3f} ms, "
-            f"device busy {busy:.3f} ms ({100 * busy / wall:.1f} %), top kernels (us): "
+        log(f"phase 4: profile of {what}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+            f"({100 * busy / wall:.1f} %), top kernels (us): "
             + "; ".join(f"{k[:48]} {v:.1f}" for k, v in top))
+
+    if dev.type == "cuda":
+        eng = engines["sonar"][0]
+        enc0 = eng.encode(batches[0])
+        profile(f"route (sonar, encoded, {n_q} queries)", lambda: eng.route(enc0, lat))
+        meng = mengines["sonar_ft"][0]
+        menc = meng.encode(batches[0])
+        mkw = mextras("sonar_ft")
+        torch.cuda.reset_peak_memory_stats()
+        meng.route(menc, **mkw)
+        sync()
+        log(f"phase 4: peak device memory of one sharded route (sonar_ft, {n_mega} servers): "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        profile(f"sharded route (sonar_ft, encoded, {n_q} queries, {n_mega} servers, "
+                f"4 shards)", lambda: meng.route(menc, **mkw))
+        # the select kernel's own device time, apart from its wrapper's
+        # host-side dispatch that the CUDA-event window above includes
+        profile(f"fused_select call {list(sa[0].shape)} k {sk['k']}",
+                lambda: ops.fused_select(*sa, **sk))
 
     kernels = [
         dict(name=r["name"], route="cuda", source=SOURCES[r["name"]],
-             replaces=REPLACES[r["name"]], launches=launches[r["name"]],
+             replaces=REPLACES[r["name"]],
+             launches=(mlaunches if r["name"] == "fused_select" else launches)[r["name"]],
              max_abs_err=max_err[r["name"]], ms=r["ms"], plain_ms=r["plain_ms"],
              bound_ms=r["bound"][0], bound_by=r["bound"][1], library_ms=r["library_ms"])
         for r in rows

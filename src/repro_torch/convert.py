@@ -6,14 +6,21 @@ objects hold), so this module imports nothing of the reference:
 * `index_from_arrays` builds a port `ToolIndex` from a compiled index's
   corpus weights, vocabularies and tool table, without re-tokenising;
 * `routing_config_from_dict` rebuilds a `RoutingConfig` from
-  ``dataclasses.asdict`` of the reference's, nested `QosParams` included.
+  ``dataclasses.asdict`` of the reference's, nested `QosParams` included;
+* `adapt_state_from_arrays` carries a SONAR-ADAPT learner state (weights,
+  reward baseline, step count) onto a device.
+
+A `TiledFleetIndex` needs no converter: the port builds it from the same
+templates with the same numpy code, byte-equal to the reference's.
 """
 from __future__ import annotations
 
 from typing import Mapping, Sequence
 
 import numpy as np
+import torch
 
+from repro_torch.core.adaptive import AdaptState
 from repro_torch.core.bm25 import Bm25Corpus
 from repro_torch.core.dataset import Server
 from repro_torch.core.qos import QosParams
@@ -54,3 +61,18 @@ def routing_config_from_dict(d: Mapping) -> RoutingConfig:
     if isinstance(qos, Mapping):
         qos = QosParams(**qos)
     return RoutingConfig(**d, **({} if qos is None else {"qos": qos}))
+
+
+def adapt_state_from_arrays(weights, baseline, step, device) -> AdaptState:
+    """`AdaptState` on ``device`` from the reference's state arrays:
+    ``weights`` f32 [4] = [alpha, beta, gamma, delta], ``baseline`` the
+    reward EMA, ``step`` the count of applied updates."""
+    w = np.asarray(weights, dtype=np.float32)
+    if w.shape != (4,):
+        raise ValueError(f"adapt_state_from_arrays: weights shape {w.shape}, expected (4,)")
+    dev = torch.device(device)
+    return AdaptState(
+        weights=torch.from_numpy(w.copy()).to(dev),
+        baseline=torch.tensor(np.float32(baseline), dtype=torch.float32, device=dev),
+        step=torch.tensor(int(step), dtype=torch.int32, device=dev),
+    )

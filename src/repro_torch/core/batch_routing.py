@@ -20,14 +20,21 @@ compiled pipeline.
 
 Selection parity: for identical inputs the engine is argmax-identical to
 `Router.select` and to the reference engine for RAG / RerankRAG / PRAG /
-SONAR / SONAR-LB / SONAR-FT / SONAR-GEO / SONAR-SESSION: every top-s and
+SONAR / SONAR-LB / SONAR-FT / SONAR-GEO / SONAR-SESSION / SONAR-ADAPT: every top-s and
 top-k is a stable sort (ties toward the lower index), invalid candidates
 are excluded from the softmax mass and the argmax, and the argmax breaks
 ties toward the higher-ranked candidate.
 
 Telemetry can be shared ([n_servers, T], one snapshot for the batch) or
 per-query ([n_q, n_servers, T], each query at its own simulated time).
-SONAR-ADAPT (learned weights) comes with a later slice of the port.
+
+SONAR-ADAPT (`core.adaptive`) learns the fusion weights online: outcomes
+recorded by `observe_feedback` are folded into the [4] weight tensor by
+EG steps (one per 64-outcome bucket) that run as tensor ops on the
+engine's device just before the route (no host sync), and the route
+fuses with those live weights.
+With ``lr == 0`` the static program runs, byte-identical to the
+hand-tuned variant whose operands are given.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import adaptive as _adaptive
 from repro_torch.core import routing
 from repro_torch.core.bm25 import bm25_scores, topk
 from repro_torch.core.dataset import Server
@@ -171,6 +179,8 @@ def _route_pipeline(
     region_idx: Optional[torch.Tensor],     # [n_q] i32 client region per request
     region_rtt: Optional[torch.Tensor],     # [n_regions, n_servers] ms
     affinity: Optional[torch.Tensor] = None,  # [n_servers] or [n_q, n_servers] W
+    adapt_w: Optional[torch.Tensor] = None,   # [4] f32 live [alpha, beta, gamma,
+                                              # delta] (SONAR-ADAPT); None: static
     *,
     top_s: int,
     top_k: int,
@@ -233,7 +243,9 @@ def _route_pipeline(
         if use_staleness and telemetry_age is not None:
             n_server = n_server * staleness_discount(telemetry_age, stale_half_life)
         tool_qos = _per_tool(n_server, ts)
-        eff_alpha, eff_beta = alpha, beta
+        # SONAR-ADAPT: the live weights replace the static floats only on
+        # the active terms; inactive terms keep their structural literals
+        eff_alpha, eff_beta = (alpha, beta) if adapt_w is None else (adapt_w[0], adapt_w[1])
     else:
         tool_qos = torch.zeros((n_tools,), dtype=torch.float32, device=dev)
         eff_alpha, eff_beta = 1.0, 0.0                      # S = C (scalar path)
@@ -241,7 +253,7 @@ def _route_pipeline(
     # -- SONAR-LB load term --
     if use_load and server_load is not None:
         tool_load = _per_tool(load_penalty(server_load, load_knee, load_sharp), ts)
-        eff_gamma = gamma
+        eff_gamma = gamma if adapt_w is None else adapt_w[2]
     else:
         tool_load = torch.zeros((n_tools,), dtype=torch.float32, device=dev)
         eff_gamma = 0.0
@@ -256,7 +268,7 @@ def _route_pipeline(
             client_rtt = region_rtt[torch.clamp_min(region_idx, 0).long()]
             client_rtt = torch.where((region_idx >= 0)[:, None], client_rtt, 0.0)
         tool_rtt = _per_tool(rtt_penalty(client_rtt, rtt_scale), ts)
-        eff_delta = delta
+        eff_delta = delta if adapt_w is None else adapt_w[3]
     else:
         tool_rtt = torch.zeros((n_tools,), dtype=torch.float32, device=dev)
         eff_delta = 0.0
@@ -296,7 +308,9 @@ class BatchRoutingEngine:
     query strings into term-count matrices on the host, `route` runs the
     decision for the batch on ``device`` (None: the CUDA card, raising
     when there is none; pass ``"cpu"`` for the plain versions).
-    ``use_kernels`` defaults to True on the card.
+    ``use_kernels`` defaults to True on the card.  ``adapt`` (an
+    `AdaptConfig`, implied by ``algo="sonar_adapt"``) turns on the
+    SONAR-ADAPT learner, whose state lives on ``device``.
     """
 
     def __init__(
@@ -306,11 +320,9 @@ class BatchRoutingEngine:
         algo: str = "sonar",
         use_kernels: Optional[bool] = None,
         index: Optional[ToolIndex] = None,
-        adapt=None,
+        adapt: Optional[_adaptive.AdaptConfig] = None,
         device=None,
     ):
-        if adapt is not None:
-            raise NotImplementedError(routing.ADAPT_NOT_PORTED)
         router_cls = routing.algorithm(algo)
         self.device = resolve_device(device)
         if use_kernels is None:
@@ -330,6 +342,14 @@ class BatchRoutingEngine:
         self._tool_server = self._to(self.index.tool_server, torch.int32)
         self._w_server = self._to(self.index.server_corpus.weights, torch.float32)
         self._w_tool = self._to(self.index.tool_corpus.weights, torch.float32)
+        # SONAR-ADAPT learner state (None for the hand-tuned algorithms)
+        self.adapt_cfg: Optional[_adaptive.AdaptConfig] = None
+        self.adapt_state: Optional[_adaptive.AdaptState] = None
+        self._fb_rewards: list = []
+        self._fb_feats: list = []
+        if self.algo == "sonar_adapt" or adapt is not None:
+            self.adapt_cfg = adapt if adapt is not None else _adaptive.AdaptConfig()
+            self.adapt_state = _adaptive.init_state(cfg, self.adapt_cfg, self.device)
 
     def _to(self, x, dtype) -> torch.Tensor:
         """Host array (or tensor) -> this engine's device, cast to ``dtype``
@@ -351,6 +371,22 @@ class BatchRoutingEngine:
         if self.rerank:
             sl += LLM_RERANK_MS
         return sl
+
+    # -- SONAR-ADAPT feedback -----------------------------------------------
+    @property
+    def adapt_weights(self) -> Optional[np.ndarray]:
+        """Live [alpha, beta, gamma, delta] (host copy), or None."""
+        if self.adapt_state is None:
+            return None
+        return self.adapt_state.weights.cpu().numpy().astype(np.float32)
+
+    def observe_feedback(self, latency_ms: float, ok: bool = True, feats=None) -> None:
+        """Record one completed call's outcome (host side, a cheap append);
+        the next `route` folds it into the weights."""
+        if self.adapt_state is None or feats is None:
+            return
+        self._fb_rewards.append(_adaptive.shape_reward(latency_ms, ok, self.adapt_cfg.slo_ms))
+        self._fb_feats.append(np.asarray(feats, np.float32))
 
     # -- device side --------------------------------------------------------
     def route(
@@ -379,6 +415,7 @@ class BatchRoutingEngine:
 
         Returns struct-of-arrays decisions, each [n_q], argmax-identical to
         a scalar `Router.select` loop over the same inputs.  Deterministic.
+        SONAR-ADAPT with ``lr != 0`` first applies the pending feedback.
         """
         if batch.n == 0:
             z = np.zeros((0,), np.float32)
@@ -411,13 +448,20 @@ class BatchRoutingEngine:
         if self.uses_affinity and affinity is not None and self.cfg.eps != 0.0:
             aff = self._to(affinity, f32)
         cfg = self.cfg
+        adapt_w = None
+        if self.adapt_state is not None and self.adapt_cfg.lr != 0.0:
+            # lr == 0 keeps the static program: byte-identical to the
+            # hand-tuned variant's (the weights never leave their init)
+            self.adapt_state = _adaptive.apply_feedback(
+                self.adapt_state, self._fb_rewards, self._fb_feats, self.adapt_cfg)
+            adapt_w = self.adapt_state.weights
         with torch.profiler.record_function("netmcp.route_pipeline"):
             server_idx, tool_idx, c, n, s = _route_pipeline(
                 self._to(batch.q_server, f32),
                 self._to(batch.q_tool, f32),
                 None if batch.q_rerank is None else self._to(batch.q_rerank, f32),
                 self._w_server, self._w_tool, self._tool_server,
-                lat, load, age, dead, rtt, reg_idx, reg_rtt, aff,
+                lat, load, age, dead, rtt, reg_idx, reg_rtt, aff, adapt_w,
                 top_s=cfg.top_s, top_k=cfg.top_k, alpha=cfg.alpha,
                 beta=cfg.beta, gamma=cfg.gamma, load_knee=cfg.load_knee,
                 load_sharp=cfg.load_sharp, delta=cfg.delta,

@@ -11,11 +11,12 @@
                argmax masking + a bounded failover loop.
   SONAR-GEO  — SONAR-LB - delta*R(rtt), the client->server RTT penalty.
   SONAR-SESSION — SONAR-GEO + eps*W, the session's warm-affinity bonus.
+  SONAR-ADAPT — SONAR-GEO + staleness + failover with learned weights
+               (`repro_torch.core.adaptive`, registered on import).
 
 The scalar `Router.select` stays numpy on the host, one query at a time:
 it is the oracle the batched engine is held to.  Its QoS, load, RTT and
 staleness terms call the port's torch functions on CPU tensors.
-SONAR-ADAPT (learned weights) is not part of this slice of the port.
 """
 from __future__ import annotations
 
@@ -459,17 +460,14 @@ ALGORITHMS = {
     "sonar_session": SonarSessionRouter,
 }
 
-ADAPT_NOT_PORTED = (
-    "sonar_adapt (learned fusion weights, repro.core.adaptive) is not ported "
-    "yet: it comes with the SONAR-ADAPT slice of the PyTorch port"
-)
-
 
 def algorithm(name: str) -> type:
-    """Router class of an algorithm name (``sonar-lb`` == ``sonar_lb``)."""
+    """Router class of an algorithm name (``sonar-lb`` == ``sonar_lb``).
+    ``sonar_adapt`` lives in `core.adaptive`, which imports this module and
+    registers itself; it is imported here on first use."""
     key = name.lower().replace("-", "_")
-    if key == "sonar_adapt":
-        raise NotImplementedError(ADAPT_NOT_PORTED)
+    if key == "sonar_adapt" and key not in ALGORITHMS:
+        from repro_torch.core import adaptive  # noqa: F401  (registers sonar_adapt)
     return ALGORITHMS[key]
 
 

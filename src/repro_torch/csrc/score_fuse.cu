@@ -33,7 +33,8 @@
 //     (score desc, global tool id asc), exactly lax.top_k's order over the
 //     full tool axis.  Ranks below k are written to their slot.  Tool ids
 //     are int32, so there is no 2^24 cap.
-//   * Finale (thread 0): softmax over the valid candidates, fusion
+//   * Finale (thread 0, select_tail.cuh, shared with select_fuse.cu):
+//     softmax over the valid candidates, fusion
 //     alpha*C + beta*N - gamma*U - delta*R (+ eps*W) in the reference's
 //     operation order without contraction, dead candidates excluded from
 //     the argmax only, strict '>' so the first maximum wins.  Per-tool rows
@@ -45,34 +46,24 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "select_tail.cuh"
+
 namespace {
+
+using select_tail::beats;
+using select_tail::NEG;
+using select_tail::Rows;
+using select_tail::ROW_QOS;
+using select_tail::N_ROWS;
 
 constexpr int STRIPE = 512;
 constexpr int THREADS = 256;
 constexpr int PER_THREAD = STRIPE / THREADS;
 constexpr int K_MAX = 128;
 constexpr int S_MAX = 128;  // largest top_s
-constexpr float NEG = -1e30f;
-
-enum { ROW_QOS = 0, ROW_LOAD, ROW_RTT, ROW_DEAD, ROW_AFF, N_ROWS };
-
-struct Rows {
-  const float* ptr[N_ROWS];   // nullptr: operand absent (reads as 0)
-  long long stride[N_ROWS];   // 0: one row broadcast to every query
-};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ float row_at(const Rows& r, int which, long long qi, int g) {
-  const float* p = r.ptr[which];
-  return p ? p[qi * r.stride[which] + g] : 0.0f;
-}
-
-// a ranks before b: higher score, or the same score and a lower tool id
-__device__ __forceinline__ bool beats(float sa, int ga, float sb, int gb) {
-  return sa > sb || (sa == sb && ga < gb);
-}
 
 template <typename TW>
 __device__ __forceinline__ float dot(const float* __restrict__ qv, const TW* __restrict__ wrow,
@@ -177,48 +168,16 @@ __global__ void __launch_bounds__(THREADS) score_fuse_kernel(
 
   if (tid != 0) return;
 
-  const float a = wlive ? wlive[0] : alpha;
-  const float b = wlive ? wlive[1] : beta;
-  const float gm = wlive ? wlive[2] : gamma;
-  const float dl = wlive ? wlive[3] : delta;
-
   if (filled == 0) {
     out_idx[qi] = 0;
     out_c[qi] = 1.0f / static_cast<float>(k);
-    out_n[qi] = row_at(rows, ROW_QOS, qi, 0);
+    out_n[qi] = select_tail::row_at(rows, ROW_QOS, qi, 0);
     out_s[qi] = NEG;
     return;
   }
-
-  float vmax = run_val[0];
-  for (int j = 1; j < filled; ++j) vmax = fmaxf(vmax, run_val[j]);
-  float denom = 0.0f;
-  for (int j = 0; j < filled; ++j) denom = __fadd_rn(denom, expf((run_val[j] - vmax) / temp));
-  denom = fmaxf(denom, 1e-30f);
-
-  int best_i = 0;
-  float best_s = NEG, best_c = 0.0f, best_n = 0.0f;
-  for (int j = 0; j < filled; ++j) {
-    const int g = run_gid[j];
-    const float c = expf((run_val[j] - vmax) / temp) / denom;
-    const float nq = row_at(rows, ROW_QOS, qi, g);
-    const float u = row_at(rows, ROW_LOAD, qi, g);
-    const float r = row_at(rows, ROW_RTT, qi, g);
-    float s = __fsub_rn(__fsub_rn(__fadd_rn(__fmul_rn(a, c), __fmul_rn(b, nq)), __fmul_rn(gm, u)),
-                        __fmul_rn(dl, r));
-    if (use_aff) s = __fadd_rn(s, __fmul_rn(eps, row_at(rows, ROW_AFF, qi, g)));
-    if (row_at(rows, ROW_DEAD, qi, g) > 0.0f) s = NEG;
-    if (j == 0 || s > best_s) {
-      best_i = g;
-      best_s = s;
-      best_c = c;
-      best_n = nq;
-    }
-  }
-  out_idx[qi] = best_i;
-  out_c[qi] = best_c;
-  out_n[qi] = best_n;
-  out_s[qi] = best_s;
+  const select_tail::Weights wt{wlive, alpha, beta, gamma, delta, eps, use_aff, temp};
+  select_tail::finale(filled, run_sel, run_val, run_gid, rows, qi, wt, out_idx, out_c, out_n,
+                      out_s);
 }
 
 template <typename TQ, typename TW>

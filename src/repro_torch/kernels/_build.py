@@ -24,7 +24,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("bm25_score", "qos_score", "score_fuse")
+SOURCES = ("bm25_score", "qos_score", "score_fuse", "select_fuse")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -123,3 +123,38 @@ def require(t: torch.Tensor, what: str, ndim: int, dtypes: tuple) -> torch.Tenso
     if not t.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous tensor")
     return t
+
+
+ROWS = ("tool_qos", "tool_load", "tool_rtt", "tool_dead", "tool_aff")
+
+
+def pack_rows(rows: dict, n_q: int, n_t: int, what: str):
+    """The fused kernels' per-tool rows (``ROWS`` order; ``tool_qos``
+    required, the others may be None): checked f32 CUDA tensors of shape
+    [n_t] (broadcast, stride 0) or [n_q, n_t] (per query, stride n_t),
+    packed as ctypes arrays of pointers and strides for the C interface."""
+    ptrs = (ctypes.c_void_p * len(ROWS))()
+    strides = (ctypes.c_longlong * len(ROWS))()
+    for j, name in enumerate(ROWS):
+        t = rows.get(name)
+        if t is None:
+            if name == "tool_qos":
+                raise ValueError(f"{what}: tool_qos is required")
+            continue
+        require(t, f"{what} {name}", t.ndim, (torch.float32,))
+        if t.shape[-1] != n_t or t.ndim not in (1, 2) or (t.ndim == 2 and t.shape[0] != n_q):
+            raise ValueError(f"{what}: {name} shape {tuple(t.shape)}")
+        ptrs[j] = t.data_ptr()
+        strides[j] = n_t if t.ndim == 2 else 0
+    return ptrs, strides
+
+
+def live_weights_ptr(live_weights, what: str):
+    """Device address of a live [alpha, beta, gamma, delta] f32 vector, or
+    None for static weights."""
+    if live_weights is None:
+        return None
+    wl = require(live_weights, f"{what} live_weights", 1, (torch.float32,))
+    if wl.shape[0] != 4:
+        raise ValueError(f"{what}: live weights are [alpha, beta, gamma, delta]")
+    return wl.data_ptr()

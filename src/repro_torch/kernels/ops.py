@@ -19,11 +19,13 @@ from repro_torch.kernels import bm25_score as _bm25
 from repro_torch.kernels import qos_score as _qos
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import score_fuse as _scf
+from repro_torch.kernels import select_fuse as _sel
 
 _LAUNCHERS = {
     "bm25_scores": _bm25.bm25_scores_cuda,
     "qos_scores": _qos.qos_scores_cuda,
     "fused_score_select": _scf.fused_score_select_cuda,
+    "fused_select": _sel.fused_select_cuda,
 }
 
 
@@ -72,6 +74,74 @@ def qos_scores(lat: torch.Tensor, params: QosParams = DEFAULT_QOS) -> torch.Tens
     return _qos.qos_scores_cuda(lat.contiguous(), params)
 
 
+def _live_weights(alpha, beta, gamma, delta, dev):
+    """(static weights, live [4] f32 vector or None): a fusion weight given
+    as a tensor makes all four live, read by the kernel from the card."""
+    weights = (alpha, beta, gamma, delta)
+    if not any(isinstance(x, torch.Tensor) for x in weights):
+        return weights, None
+    live = torch.stack([
+        torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(()) for x in weights
+    ])
+    return (0.0, 0.0, 0.0, 0.0), live
+
+
+def _row(x):
+    return None if x is None else x.to(torch.float32).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Fused selection over materialised scores (top-k + softmax + fusion + argmax)
+# ---------------------------------------------------------------------------
+
+def fused_select(
+    sel_scores: torch.Tensor,   # [n_q, n_tools] stage-2 scores, invalid = -inf/NEG
+    val_scores: torch.Tensor,   # [n_q, n_tools] softmax-value scores (== sel
+                                # except under rerank)
+    tool_qos: torch.Tensor,     # [n_q, n_tools] or [n_tools] per-tool N
+    tool_load: Optional[torch.Tensor] = None,   # U
+    tool_dead: Optional[torch.Tensor] = None,   # >0 excludes from the argmax
+    *,
+    k: int,
+    alpha,
+    beta,
+    gamma=0.0,
+    temp: float = 1.0,
+    tool_rtt: Optional[torch.Tensor] = None,    # R
+    delta=0.0,
+    tool_aff: Optional[torch.Tensor] = None,    # W
+    eps: float = 0.0,
+):
+    """Winning (tool_idx i32, C, N, S) per query: the stage-2 top-k (ties
+    toward the lower index), softmax, fusion and argmax tail of
+    `Router.select`.  ``sel`` is clamped to NEG first, so -inf marks an
+    invalid candidate.  Rows are broadcast [n_tools] or per query; fusion
+    weights are floats or 0-d tensors (then all four are live); ``k`` is
+    cut to ``n_tools``, and above the kernel's K_MAX it raises."""
+    k = min(k, sel_scores.shape[-1])
+    extras = (tool_qos, tool_load, tool_dead, tool_rtt, tool_aff)
+    if not _on_cuda(sel_scores, val_scores, *extras):
+        return kref.fused_select_ref(
+            sel_scores, val_scores, tool_qos, tool_load, tool_dead, k=k, alpha=alpha,
+            beta=beta, gamma=gamma, temp=temp, tool_rtt=tool_rtt, delta=delta,
+            tool_aff=tool_aff, eps=eps,
+        )
+    weights, live = _live_weights(alpha, beta, gamma, delta, sel_scores.device)
+    sel = torch.clamp_min(sel_scores.to(torch.float32), kref.NEG).contiguous()
+    if val_scores.dtype != torch.bfloat16:
+        val_scores = val_scores.to(torch.float32)
+    return _sel.fused_select_cuda(
+        sel, val_scores.contiguous(),
+        {
+            "tool_qos": _row(tool_qos), "tool_load": _row(tool_load),
+            "tool_rtt": _row(tool_rtt), "tool_dead": _row(tool_dead),
+            "tool_aff": _row(tool_aff),
+        },
+        k=k, alpha=weights[0], beta=weights[1], gamma=weights[2], delta=weights[3],
+        eps=eps, temp=temp, live_weights=live,
+    )
+
+
 # ---------------------------------------------------------------------------
 # Single-pass fused stage 2
 # ---------------------------------------------------------------------------
@@ -108,17 +178,7 @@ def fused_score_select(
             tool_dead, q_rerank, k=k, alpha=alpha, beta=beta, gamma=gamma,
             temp=temp, tool_rtt=tool_rtt, delta=delta, tool_aff=tool_aff, eps=eps,
         )
-    dev = q_tool.device
-    weights = (alpha, beta, gamma, delta)
-    live = None
-    if any(isinstance(x, torch.Tensor) for x in weights):
-        live = torch.stack([
-            torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(()) for x in weights
-        ])
-        weights = (0.0, 0.0, 0.0, 0.0)
-
-    def row(x):
-        return None if x is None else x.to(torch.float32).contiguous()
+    weights, live = _live_weights(alpha, beta, gamma, delta, q_tool.device)
 
     def operand(x, dtype=None):        # f32 or bf16 storage, widened in the kernel
         if dtype is None:
@@ -131,9 +191,9 @@ def fused_score_select(
         tool_server.to(torch.int32).contiguous(),
         cand_servers.to(torch.int32).contiguous(),
         {
-            "tool_qos": row(tool_qos), "tool_load": row(tool_load),
-            "tool_rtt": row(tool_rtt), "tool_dead": row(tool_dead),
-            "tool_aff": row(tool_aff),
+            "tool_qos": _row(tool_qos), "tool_load": _row(tool_load),
+            "tool_rtt": _row(tool_rtt), "tool_dead": _row(tool_dead),
+            "tool_aff": _row(tool_aff),
         },
         None if q_rerank is None else operand(q_rerank, q.dtype),
         k=k, alpha=weights[0], beta=weights[1], gamma=weights[2], delta=weights[3],

@@ -16,7 +16,6 @@ from repro_torch.kernels import _build
 
 K_MAX = 128     # largest top-k the kernel keeps
 S_MAX = 128     # largest stage-1 candidate count
-_ROWS = ("tool_qos", "tool_load", "tool_rtt", "tool_dead", "tool_aff")
 _FN = None
 
 
@@ -45,7 +44,7 @@ def fused_score_select_cuda(
     w_tool: torch.Tensor,             # [n_tools, V] f32/bf16
     tool_server: torch.Tensor,        # [n_tools] i32
     cand_servers: torch.Tensor,       # [n_q, top_s] i32
-    rows: dict,                       # name in _ROWS -> f32 [n_tools] / [n_q, n_tools] / None
+    rows: dict,                       # _build.ROWS name -> f32 row or None
     q_rerank: Optional[torch.Tensor],  # [n_q, V] like q_tool, or None
     *,
     k: int,
@@ -74,24 +73,8 @@ def fused_score_select_cuda(
         qr = _build.require(q_rerank, "fused_score_select q_rerank", 2, (q.dtype,))
         if qr.shape != q.shape:
             raise ValueError("fused_score_select: q_rerank shape differs from q_tool")
-    ptrs = (ctypes.c_void_p * len(_ROWS))()
-    strides = (ctypes.c_longlong * len(_ROWS))()
-    for j, name in enumerate(_ROWS):
-        t = rows.get(name)
-        if t is None:
-            if name == "tool_qos":
-                raise ValueError("fused_score_select: tool_qos is required")
-            continue
-        _build.require(t, f"fused_score_select {name}", t.ndim, (torch.float32,))
-        if t.shape[-1] != n_t or t.ndim not in (1, 2) or (t.ndim == 2 and t.shape[0] != n_q):
-            raise ValueError(f"fused_score_select: {name} shape {tuple(t.shape)}")
-        ptrs[j] = t.data_ptr()
-        strides[j] = n_t if t.ndim == 2 else 0
-    wl = None
-    if live_weights is not None:
-        wl = _build.require(live_weights, "fused_score_select live_weights", 1, (torch.float32,))
-        if wl.shape[0] != 4:
-            raise ValueError("fused_score_select: live weights are [alpha, beta, gamma, delta]")
+    ptrs, strides = _build.pack_rows(rows, n_q, n_t, "fused_score_select")
+    wl = _build.live_weights_ptr(live_weights, "fused_score_select")
     dev = q.device
     idx = torch.empty((n_q,), dtype=torch.int32, device=dev)
     c, n, s = (torch.empty((n_q,), dtype=torch.float32, device=dev) for _ in range(3))
@@ -102,7 +85,7 @@ def fused_score_select_cuda(
         int(q.dtype == torch.bfloat16), w.data_ptr(), int(w.dtype == torch.bfloat16),
         host.data_ptr(), cand.data_ptr(),
         ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(strides, ctypes.c_void_p),
-        None if wl is None else wl.data_ptr(),
+        wl,
         float(alpha), float(beta), float(gamma), float(delta), float(eps),
         int(rows.get("tool_aff") is not None), float(temp),
         n_q, n_t, V, top_s, int(k),

@@ -25,6 +25,7 @@ from repro.core.batch_routing import EncodedBatch as JEncodedBatch
 from repro.traffic import replica_fleet
 from repro_torch import convert
 from repro_torch.core import dataset, routing
+from repro_torch.core.adaptive import AdaptConfig, SonarAdaptRouter
 from repro_torch.core.batch_routing import BatchRoutingEngine, make_engine
 from repro_torch.core.routing import RoutingConfig
 
@@ -275,12 +276,19 @@ def test_device_rule_and_deferred_adapt(monkeypatch):
     with pytest.raises(RuntimeError):
         make_engine("sonar", servers, device="cuda")
     assert make_engine("sonar", servers, device="cpu").use_kernels is False
-    with pytest.raises(NotImplementedError, match="SONAR-ADAPT"):
-        make_engine("sonar_adapt", servers, device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_engine("sonar", servers, device="cpu", adapt=object())
-    with pytest.raises(NotImplementedError):
-        routing.make_router("sonar-adapt", servers)
+    # SONAR-ADAPT is ported: the engine, the adapt= option and the scalar
+    # router build, and the learner starts from the config's weights
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_engine("sonar_adapt", servers)
+    eng = make_engine("sonar_adapt", servers, device="cpu")
+    assert eng.adapt_state is not None and eng.adapt_state.weights.device.type == "cpu"
+    cfg = RoutingConfig()
+    assert eng.adapt_weights.tobytes() == np.asarray(
+        [cfg.alpha, cfg.beta, cfg.gamma, cfg.delta], np.float32).tobytes()
+    assert make_engine("sonar", servers, device="cpu").adapt_state is None
+    lr0 = make_engine("sonar", servers, device="cpu", adapt=AdaptConfig(lr=0.0))
+    assert lr0.adapt_cfg.lr == 0.0 and lr0.adapt_state is not None
+    assert isinstance(routing.make_router("sonar-adapt", servers), SonarAdaptRouter)
 
 
 def test_port_imports_neither_jax_nor_the_reference():
@@ -292,7 +300,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
-        "assert 'repro_torch.core.batch_routing' in sys.modules\n"
+        "for m in ('core.batch_routing', 'core.mesh_routing', 'core.adaptive',\n"
+        "          'traffic.fleet', 'kernels.select_fuse'):\n"
+        "    assert 'repro_torch.' + m in sys.modules, m\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                    env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})

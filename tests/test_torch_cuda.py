@@ -5,9 +5,9 @@ JAX nor the reference, so it also runs on a machine that has only PyTorch:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-BM25 and the fused stage 2 sum in the same order as their plain versions
-and must agree bit for bit at softmax temperature 1 (the engine's
-default).  At another temperature PyTorch divides by the Python scalar as
+BM25, the fused stage 2 and the fused selection sum in the same order as
+their plain versions and must agree bit for bit at softmax temperature 1
+(the engines' default).  At another temperature PyTorch divides by the Python scalar as
 a multiply by its reciprocal while the kernel divides, so C and S agree
 within rtol 2e-6 / atol 2e-7 there; QoS sums in another order and agrees
 within the same tolerance.  Decisions are always exact.  A CUDA tensor
@@ -19,9 +19,11 @@ import torch
 
 from repro_torch.core import bm25, dataset, qos
 from repro_torch.core.batch_routing import make_engine
+from repro_torch.core.mesh_routing import make_sharded_engine
 from repro_torch.core.routing import RoutingConfig, ToolIndex
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
+from repro_torch.traffic import mega_fleet_index
 
 RTOL, ATOL = 2e-6, 2e-7
 pytestmark = pytest.mark.cuda
@@ -112,13 +114,19 @@ def test_ops_never_take_the_plain_path_on_cuda(cuda, monkeypatch):
     monkeypatch.setattr(ops, "_bm25_plain", plain_called)
     monkeypatch.setattr(ops, "network_score", plain_called)
     monkeypatch.setattr(kref, "fused_score_select_ref", plain_called)
+    monkeypatch.setattr(kref, "fused_select_ref", plain_called)
     ops.reset_launches()
     ops.bm25_scores(q, w)
     ops.qos_scores(lat)
     ops.fused_score_select(q, w, ts, cand, torch.zeros(700, device=cuda), q_rerank=qr,
                            k=5, alpha=1.0, beta=0.0)
+    sel = torch.rand((20, 700), device=cuda)
+    ops.fused_select(sel, sel, torch.zeros(700, device=cuda), k=5, alpha=1.0, beta=0.0)
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"bm25_scores": 1, "qos_scores": 1, "fused_score_select": 1}
+    assert ops.launch_counts() == {"bm25_scores": 1, "qos_scores": 1, "fused_score_select": 1,
+                                   "fused_select": 1}
+    with pytest.raises(ValueError, match="k="):
+        ops.fused_select(sel, sel, torch.zeros(700, device=cuda), k=129, alpha=1.0, beta=0.0)
     with pytest.raises(ValueError, match="mixed devices"):
         ops.bm25_scores(q, w.cpu())
 
@@ -141,6 +149,75 @@ def test_engine_kernel_path_equals_plain_path(cuda):
         a = make_engine(algo, servers, cfg, index=index).route_texts(texts, lat, **ops_kw)
         b = make_engine(algo, servers, cfg, index=index, device="cuda",
                         use_kernels=False).route_texts(texts, lat, **ops_kw)
+        np.testing.assert_array_equal(a.tool_idx, b.tool_idx, err_msg=algo)
+        np.testing.assert_array_equal(a.server_idx, b.server_idx, err_msg=algo)
+        for x, y in ((a.expertise, b.expertise), (a.network, b.network), (a.fused, b.fused)):
+            np.testing.assert_allclose(x, y, rtol=RTOL, atol=ATOL, err_msg=algo)
+
+
+@pytest.mark.parametrize("variant", ["broadcast", "per_query", "bf16", "live_aff", "all_invalid",
+                                     "all_dead", "k128", "wide", "temp", "one_tool", "narrow"])
+def test_select_kernel_matches_plain(cuda, variant):
+    """fused_select against its plain version at widths from 1 to 60,000
+    (the widest read from global memory), with -inf entries and ties."""
+    n_q, n_t = {"wide": (9, 60_000), "one_tool": (5, 1), "narrow": (256, 16),
+                "k128": (33, 20_010)}.get(variant, (37, 300))
+    g = torch.Generator(device=cuda).manual_seed(len(variant))
+    sel = torch.randint(0, 6, (n_q, n_t), generator=g, device=cuda).float()
+    sel = torch.where(torch.rand((n_q, n_t), generator=g, device=cuda) < 0.3, -float("inf"), sel)
+    if variant == "all_invalid":
+        sel.fill_(-float("inf"))
+    val = torch.rand((n_q, n_t), generator=g, device=cuda) * 4
+    shape = (n_q, n_t) if variant in ("per_query", "live_aff") else (n_t,)
+
+    def row():
+        return torch.rand(shape, generator=g, device=cuda)
+
+    dead = (row() < (1.1 if variant == "all_dead" else 0.2)).float()
+    kw = dict(k={"k128": 128, "one_tool": 1, "narrow": 16}.get(variant, 12), alpha=0.6,
+              beta=0.3, gamma=0.2, delta=0.1, tool_rtt=row(),
+              temp=0.7 if variant == "temp" else 1.0)
+    if variant == "live_aff":
+        live = torch.tensor([0.45, 0.55, 0.3, 0.2], device=cuda)
+        kw.update(alpha=live[0], beta=live[1], gamma=live[2], delta=live[3], tool_aff=row(),
+                  eps=0.25)
+    s, v = (sel.bfloat16(), val.bfloat16()) if variant == "bf16" else (sel, val)
+    args = (s, v, row() * 2 - 1, row(), dead)
+    got = ops.fused_select(*args, **kw)
+    want = kref.fused_select_ref(*args, **kw)
+    assert torch.equal(got[0], want[0]), variant
+    for a, b in zip(got[1:], want[1:]):
+        if variant == "temp":
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+        else:
+            assert torch.equal(a, b), variant
+
+
+def test_sharded_kernel_path_equals_plain_path(cuda):
+    """The shard-stacked engine over a tiled fleet: every algorithm's
+    kernel-path decision equals the plain path's, with one fused_select
+    launch per route."""
+    n = 20_000
+    index = mega_fleet_index(n, weights_dtype="bfloat16")
+    texts = [q.text for q in dataset.build_query_dataset(n=64, seed=1)]
+    rng = np.random.default_rng(3)
+    compact = rng.uniform(20, 300, (16, 32)).astype(np.float32)
+    compact[::5, -1] = 1200.0
+    kw = dict(server_load=rng.random(n).astype(np.float32),
+              telemetry_age_s=(rng.random(n) * 400).astype(np.float32),
+              failed_mask=rng.random(n) < 0.05,
+              client_region=rng.integers(-1, 6, len(texts)).astype(np.int32),
+              region_rtt_ms=(rng.random((6, n)) * 300).astype(np.float32),
+              affinity=rng.random(n).astype(np.float32),
+              telemetry_templates=(compact, (np.arange(n) * 2654435761) % 16))
+    cfg = RoutingConfig(top_s=8, top_k=16)
+    for algo in ("rerank_rag", "sonar", "sonar_ft", "sonar_session", "sonar_adapt"):
+        ek = make_sharded_engine(algo, cfg=cfg, n_shards=4, index=index)
+        ops.reset_launches()
+        a = ek.route_texts(texts, **kw)
+        assert ops.launch_counts()["fused_select"] == 1, algo
+        b = make_sharded_engine(algo, cfg=cfg, n_shards=4, index=index,
+                                use_kernels=False).route_texts(texts, **kw)
         np.testing.assert_array_equal(a.tool_idx, b.tool_idx, err_msg=algo)
         np.testing.assert_array_equal(a.server_idx, b.server_idx, err_msg=algo)
         for x, y in ((a.expertise, b.expertise), (a.network, b.network), (a.fused, b.fused)):

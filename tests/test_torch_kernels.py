@@ -4,7 +4,9 @@ reference's, on the CPU.
 Here the port's wrappers run their plain PyTorch versions (the tensors lie
 on the CPU); the reference runs its Pallas kernels in interpret mode and
 its jnp oracles.  The fused stage-2 cases mirror `tests/test_score_fuse.py`
-and add the live-weight, affinity and per-query-row variants.  Decisions
+and add the live-weight, affinity and per-query-row variants; the
+fused-selection cases mirror `tests/test_kernel_edges.py` (off-tile shapes,
+one server, fewer tools than k, all invalid, all dead, mixed).  Decisions
 must match exactly; C, N and S within rtol 2e-6 / atol 2e-7.
 The CUDA kernels themselves are tested on the card by
 `tests/test_torch_cuda.py`.
@@ -22,7 +24,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import qos
 from repro_torch.kernels import _build, ops
-from repro_torch.kernels import bm25_score, qos_score, score_fuse
+from repro_torch.kernels import bm25_score, qos_score, score_fuse, select_fuse
 from repro_torch.kernels import ref as kref
 
 RTOL, ATOL = 2e-6, 2e-7
@@ -220,7 +222,8 @@ def test_qos_scores_dispatches_to_plain_on_cpu():
     assert np.array_equal(got, qos.network_score(_t(lat)).numpy())
     np.testing.assert_allclose(got, np.asarray(jops.qos_scores(lat, interpret=True)),
                                rtol=RTOL, atol=ATOL)
-    assert ops.launch_counts() == {"bm25_scores": 0, "qos_scores": 0, "fused_score_select": 0}
+    assert ops.launch_counts() == {"bm25_scores": 0, "qos_scores": 0, "fused_score_select": 0,
+                                   "fused_select": 0}
 
 
 def test_kernel_launchers_refuse_cpu_tensors_without_building():
@@ -237,6 +240,9 @@ def test_kernel_launchers_refuse_cpu_tensors_without_building():
             {"tool_qos": torch.zeros(3)}, None, k=1, alpha=1.0, beta=0.0, gamma=0.0,
             delta=0.0, eps=0.0, temp=1.0,
         )
+    with pytest.raises(ValueError, match="CUDA"):
+        select_fuse.fused_select_cuda(x, x, {"tool_qos": torch.zeros(3)}, k=1, alpha=1.0,
+                                      beta=0.0, gamma=0.0, delta=0.0, eps=0.0, temp=1.0)
     assert _build._LIBS == {}
 
 
@@ -249,14 +255,20 @@ def test_importing_builds_nothing():
         "    raise AssertionError('a process was started')\n"
         "subprocess.Popen = refuse\n"
         "from repro_torch.kernels import _build, ops, bm25_score, qos_score, score_fuse, ref\n"
+        "from repro_torch.kernels import select_fuse\n"
         "from repro_torch.core import dataset\n"
         "from repro_torch.core.batch_routing import make_engine\n"
+        "from repro_torch.core.mesh_routing import make_sharded_engine\n"
+        "from repro_torch.traffic import mega_fleet_index\n"
         "s = dataset.build_server_pool(0)\n"
         "e = make_engine('sonar', s, device='cpu', use_kernels=True)\n"
         "d = e.route_texts(['search the web'])\n"
+        "m = make_sharded_engine('sonar_adapt', index=mega_fleet_index(30), n_shards=2,\n"
+        "                        device='cpu', use_kernels=True)\n"
+        "d = m.route_texts(['search the web'])\n"
         "assert _build._LIBS == {}\n"
         "assert ops.launch_counts() == {'bm25_scores': 0, 'qos_scores': 0,"
-        " 'fused_score_select': 0}\n"
+        " 'fused_score_select': 0, 'fused_select': 0}\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
@@ -271,3 +283,90 @@ def test_qos_kernel_constants():
     x = np.arange(20, dtype=np.float32) - 19 + (20 - 1) / 2.0
     assert vals[16] == float(np.sum(x * x))
     assert vals[5] == float(np.float32(0.7 ** 20))
+
+
+# ---------------------------------------------------------------------------
+# fused_select: the port's wrapper (plain version on the CPU) against the
+# reference's Pallas kernel in interpret mode and its jnp oracle
+# ---------------------------------------------------------------------------
+
+def _select_both(sel, val, qos_row, load=None, dead=None, **kw):
+    kw.setdefault("alpha", 0.5)
+    kw.setdefault("beta", 0.5)
+    tkw = {k: (_t(v) if isinstance(v, np.ndarray) else v) for k, v in kw.items()}
+    got = ops.fused_select(_t(sel), _t(val), _t(qos_row), _t(load), _t(dead), **tkw)
+    jkw = {k: (jnp.asarray(v) if isinstance(v, np.ndarray) else v) for k, v in kw.items()}
+    jargs = [None if x is None else jnp.asarray(x) for x in (sel, val, qos_row, load, dead)]
+    _check(got, jops.fused_select(*jargs, interpret=True, **jkw), "vs pallas")
+    _check(got, jref.fused_select_ref(*jargs, **jkw), "vs oracle")
+    return [x.numpy() for x in got]
+
+
+@pytest.mark.parametrize("n_q,n_t", [(1, 1), (3, 130), (QUERY_TILE + 1, 300), (2, 127)])
+def test_fused_select_off_tile_shapes(n_q, n_t):
+    rng = np.random.default_rng(n_q * 1000 + n_t)
+    sel = rng.standard_normal((n_q, n_t)).astype(np.float32)
+    _select_both(sel, sel, rng.uniform(-1, 1, n_t).astype(np.float32), k=min(8, n_t))
+
+
+def test_fused_select_single_server_fleet():
+    sel = np.asarray([[2.5], [0.1], [-1.0]], np.float32)
+    idx, c, _n, _s = _select_both(sel, sel, np.asarray([0.3], np.float32), k=4)
+    assert (idx == 0).all()
+    np.testing.assert_allclose(c, 1.0, rtol=1e-6)
+
+
+def test_fused_select_fewer_tools_than_k():
+    rng = np.random.default_rng(0)
+    sel = rng.standard_normal((5, 7)).astype(np.float32)
+    qos_row = rng.random((5, 7)).astype(np.float32)
+    idx = _select_both(sel, sel, qos_row, k=10)[0]
+    full = kref.fused_select_ref(_t(sel), _t(sel), _t(qos_row), k=7, alpha=0.5, beta=0.5)
+    assert (idx == full[0].numpy()).all()
+
+
+def test_fused_select_all_candidates_invalid():
+    sel = np.full((4, 40), -np.inf, np.float32)
+    idx, _c, _n, s = _select_both(sel, sel, np.zeros(40, np.float32), k=8)
+    assert (idx == 0).all() and (s <= kref.NEG / 2).all()
+
+
+def test_fused_select_all_candidates_dead():
+    rng = np.random.default_rng(3)
+    sel = rng.standard_normal((6, 90)).astype(np.float32) * 2
+    idx, _c, _n, s = _select_both(sel, sel, rng.random(90).astype(np.float32),
+                                  dead=np.ones(90, np.float32), k=6)
+    assert (idx == np.argmax(sel, axis=1)).all() and (s <= kref.NEG / 2).all()
+
+
+def test_fused_select_mixed_dead_and_invalid():
+    rng = np.random.default_rng(9)
+    n_q, n_t = 9, 150
+    sel = rng.standard_normal((n_q, n_t)).astype(np.float32) * 3
+    sel = np.where(rng.random((n_q, n_t)) < 0.5, sel, -np.inf).astype(np.float32)
+    _select_both(sel, sel, rng.uniform(-1, 1, (n_q, n_t)).astype(np.float32),
+                 load=rng.random(n_t).astype(np.float32),
+                 dead=(rng.random((n_q, n_t)) < 0.5).astype(np.float32), k=12, gamma=0.3)
+
+
+@pytest.mark.parametrize("per_query", [False, True])
+def test_fused_select_rerank_rtt_affinity_live_weights(per_query):
+    """val differs from sel (rerank), tie-heavy integer scores, the RTT and
+    affinity rows, and the live [4] weight vector the sharded engine feeds."""
+    rng = np.random.default_rng(11)
+    n_q, n_t = 7, 45
+    sel = rng.integers(0, 4, (n_q, n_t)).astype(np.float32)
+    sel[rng.random((n_q, n_t)) < 0.3] = -np.inf
+    val = rng.random((n_q, n_t)).astype(np.float32)
+    shape = (n_q, n_t) if per_query else (n_t,)
+    rows = {nm: rng.random(shape).astype(np.float32) for nm in ("qos", "load", "rtt", "aff")}
+    dead = (rng.random(shape) < 0.2).astype(np.float32)
+    kw = dict(k=9, temp=0.8, tool_rtt=rows["rtt"], tool_aff=rows["aff"], eps=0.25)
+    want = _select_both(sel, val, rows["qos"], rows["load"], dead, alpha=0.45, beta=0.55,
+                        gamma=0.3, delta=0.2, **kw)
+    live = torch.tensor([0.45, 0.55, 0.3, 0.2])
+    tkw = {k: (_t(v) if isinstance(v, np.ndarray) else v) for k, v in kw.items()}
+    got = ops.fused_select(_t(sel), _t(val), _t(rows["qos"]), _t(rows["load"]), _t(dead),
+                           alpha=live[0], beta=live[1], gamma=live[2], delta=live[3], **tkw)
+    for a, b in zip(got, want):
+        assert np.array_equal(a.numpy(), b)
