@@ -406,6 +406,8 @@ def main(rehearse: bool) -> None:
                 fail(f"{name}: the main path never launched its kernel")
             if n != routes[name]:
                 fail(f"{name}: {n} launches for {routes[name]} kernel calls")
+        if launches["fused_select"] != 0:
+            fail("the single-engine path launched the sharded merge's fused_select")
 
     for algo, (_, ep) in engines.items():
         for i, texts in enumerate(batches):
@@ -617,6 +619,12 @@ def main(rehearse: bool) -> None:
             plain_ms=timed(lambda: kref.fused_select_ref(*sa, **sk)), library_ms=None,
             bound=b_sel, shape=f"[{n_qs}, {n_ts}] mega tail (sonar_adapt: per-query rows, "
                                f"dead, rtt, live weights), k {sk['k']}"))
+        # ... and at its widest shape, the full tool axis with k 128, where
+        # every round reads the whole row from global memory (L2)
+        wa, wk = cases["full axis: per-query rows, rerank, affinity, live weights, k 128"]
+        wide_sel = dict(ms=timed(lambda: ops.fused_select(*wa, **wk)),
+                        plain_ms=timed(lambda: kref.fused_select_ref(*wa, **wk),
+                                       n=max(3, reps // 5)))
     per_route = {n: launches[n] / max(routes[n], 1) for n in routes}
     per_route["fused_select"] = mlaunches["fused_select"] / max(mroutes["fused_select"], 1)
     for r in rows:
@@ -628,6 +636,9 @@ def main(rehearse: bool) -> None:
     log(f"phase 4: bm25_scores dense-product bound {rows[0]['dense_bound_ms']:.5f} ms")
     log(f"phase 4: qos_scores per-query [{flat.shape[0]}, {T}]: kernel {perq['ms']:.4f} ms, "
         f"plain {perq['plain_ms']:.4f} ms, bound {perq['bound'][0]:.5f} ms by {perq['bound'][1]}")
+    log(f"phase 4: fused_select full axis {list(wa[0].shape)} k {wk['k']} (per-query rows, "
+        f"live weights, affinity): kernel {wide_sel['ms']:.4f} ms, plain "
+        f"{wide_sel['plain_ms']:.4f} ms")
 
     e2e = {}
     for algo in ("sonar", "sonar_ft"):

@@ -239,24 +239,57 @@ def adapt_update(
     valid: np.ndarray,
     acfg: AdaptConfig,
 ) -> AdaptState:
-    """Standalone update (the scalar router, the sharded engine's state and
-    overflow buckets): the same `_adapt_step`, looked up on the module at
-    call time."""
+    """Standalone update (the scalar router and `FeedbackLearner`): the
+    same `_adapt_step`, looked up on the module at call time."""
     return _adapt_step(state, rewards, feats, valid, acfg)
 
 
-def apply_feedback(state: AdaptState, rewards: list, feats: list,
-                   acfg: AdaptConfig) -> AdaptState:
-    """Fold pending outcomes into the state, FEEDBACK_BUCKET at a time, as
-    tensor ops on the state's device; empties both lists.  No pending
-    outcome leaves the state as it is (an all-pad bucket is the identity)."""
-    B = FEEDBACK_BUCKET
-    while rewards:
-        r, f, v = pad_feedback(rewards[:B], feats[:B], B)
-        state = adapt_update(state, r, f, v, acfg)
-        del rewards[:B]
-        del feats[:B]
-    return state
+class FeedbackLearner:
+    """An engine's SONAR-ADAPT learner: its config, its state on the
+    engine's device, and the outcomes recorded since the last route."""
+
+    def __init__(self, cfg: RoutingConfig, acfg: AdaptConfig, device=None):
+        self.cfg = acfg
+        self.state = init_state(cfg, acfg, device)
+        self._rewards: list = []
+        self._feats: list = []
+
+    @classmethod
+    def for_engine(cls, algo: str, cfg: RoutingConfig, adapt: Optional[AdaptConfig],
+                   device) -> Optional["FeedbackLearner"]:
+        """The learner of an engine routing ``algo``: None for a hand-tuned
+        algorithm without ``adapt``; ``algo="sonar_adapt"`` implies the
+        default `AdaptConfig`."""
+        if algo != "sonar_adapt" and adapt is None:
+            return None
+        return cls(cfg, adapt if adapt is not None else AdaptConfig(), device)
+
+    @property
+    def weights(self) -> np.ndarray:
+        """Live [alpha, beta, gamma, delta] (host copy)."""
+        return self.state.weights.cpu().numpy().astype(np.float32)
+
+    def observe(self, latency_ms: float, ok: bool, feats) -> None:
+        """Record one completed call's outcome (host side, a cheap append)."""
+        if feats is None:
+            return
+        self._rewards.append(shape_reward(latency_ms, ok, self.cfg.slo_ms))
+        self._feats.append(np.asarray(feats, np.float32))
+
+    def pending_weights(self) -> Optional[torch.Tensor]:
+        """Fold the recorded outcomes into the state, FEEDBACK_BUCKET at a
+        time as tensor ops on its device, and return the [4] weight tensor
+        to route with.  None with lr == 0: the engine keeps its static
+        program, byte-identical to the hand-tuned variant's."""
+        if self.cfg.lr == 0.0:
+            return None
+        B = FEEDBACK_BUCKET
+        while self._rewards:
+            r, f, v = pad_feedback(self._rewards[:B], self._feats[:B], B)
+            self.state = adapt_update(self.state, r, f, v, self.cfg)
+            del self._rewards[:B]
+            del self._feats[:B]
+        return self.state.weights
 
 
 def weights_cfg(cfg: RoutingConfig, state: AdaptState) -> RoutingConfig:

@@ -342,14 +342,8 @@ class BatchRoutingEngine:
         self._tool_server = self._to(self.index.tool_server, torch.int32)
         self._w_server = self._to(self.index.server_corpus.weights, torch.float32)
         self._w_tool = self._to(self.index.tool_corpus.weights, torch.float32)
-        # SONAR-ADAPT learner state (None for the hand-tuned algorithms)
-        self.adapt_cfg: Optional[_adaptive.AdaptConfig] = None
-        self.adapt_state: Optional[_adaptive.AdaptState] = None
-        self._fb_rewards: list = []
-        self._fb_feats: list = []
-        if self.algo == "sonar_adapt" or adapt is not None:
-            self.adapt_cfg = adapt if adapt is not None else _adaptive.AdaptConfig()
-            self.adapt_state = _adaptive.init_state(cfg, self.adapt_cfg, self.device)
+        # SONAR-ADAPT learner (None for the hand-tuned algorithms)
+        self.learner = _adaptive.FeedbackLearner.for_engine(self.algo, cfg, adapt, self.device)
 
     def _to(self, x, dtype) -> torch.Tensor:
         """Host array (or tensor) -> this engine's device, cast to ``dtype``
@@ -376,17 +370,13 @@ class BatchRoutingEngine:
     @property
     def adapt_weights(self) -> Optional[np.ndarray]:
         """Live [alpha, beta, gamma, delta] (host copy), or None."""
-        if self.adapt_state is None:
-            return None
-        return self.adapt_state.weights.cpu().numpy().astype(np.float32)
+        return None if self.learner is None else self.learner.weights
 
     def observe_feedback(self, latency_ms: float, ok: bool = True, feats=None) -> None:
-        """Record one completed call's outcome (host side, a cheap append);
-        the next `route` folds it into the weights."""
-        if self.adapt_state is None or feats is None:
-            return
-        self._fb_rewards.append(_adaptive.shape_reward(latency_ms, ok, self.adapt_cfg.slo_ms))
-        self._fb_feats.append(np.asarray(feats, np.float32))
+        """Record one completed call's outcome; the next `route` folds it
+        into the weights."""
+        if self.learner is not None:
+            self.learner.observe(latency_ms, ok, feats)
 
     # -- device side --------------------------------------------------------
     def route(
@@ -448,13 +438,7 @@ class BatchRoutingEngine:
         if self.uses_affinity and affinity is not None and self.cfg.eps != 0.0:
             aff = self._to(affinity, f32)
         cfg = self.cfg
-        adapt_w = None
-        if self.adapt_state is not None and self.adapt_cfg.lr != 0.0:
-            # lr == 0 keeps the static program: byte-identical to the
-            # hand-tuned variant's (the weights never leave their init)
-            self.adapt_state = _adaptive.apply_feedback(
-                self.adapt_state, self._fb_rewards, self._fb_feats, self.adapt_cfg)
-            adapt_w = self.adapt_state.weights
+        adapt_w = None if self.learner is None else self.learner.pending_weights()
         with torch.profiler.record_function("netmcp.route_pipeline"):
             server_idx, tool_idx, c, n, s = _route_pipeline(
                 self._to(batch.q_server, f32),

@@ -592,7 +592,8 @@ class ShardedRoutingEngine:
     the shards on ``device`` (None: the CUDA card, raising without one;
     "cpu" runs the plain versions); a device mesh raises
     NotImplementedError.  ``use_kernels`` defaults to True on the card.
-    ``compact_stage2`` (tiled only) defaults to on where eligible.
+    A tiled fleet takes the candidate-compacted stage 2 when every server
+    hosts a tool and ``n_servers >= cfg.top_s`` (``self.compact_stage2``).
     ``adapt`` (implied by ``algo="sonar_adapt"``) turns on the SONAR-ADAPT
     learner: one replicated state, updated once per route.
     """
@@ -606,7 +607,6 @@ class ShardedRoutingEngine:
         mesh=None,
         use_kernels: Optional[bool] = None,
         index=None,
-        compact_stage2: Optional[bool] = None,
         adapt: Optional[_adaptive.AdaptConfig] = None,
         device=None,
     ):
@@ -660,14 +660,7 @@ class ShardedRoutingEngine:
             # count and first tool-doc id per server
             ts = np.asarray(index.tool_server, np.int64)
             counts = np.bincount(ts, minlength=self.n_servers)
-            eligible = int(counts.min()) >= 1 and self.n_servers >= cfg.top_s
-            if compact_stage2 is None:
-                self.compact_stage2 = eligible
-            elif compact_stage2:
-                if not eligible:
-                    raise ValueError("compact_stage2 requires every server to host >= 1 tool "
-                                     "and n_servers >= cfg.top_s")
-                self.compact_stage2 = True
+            self.compact_stage2 = int(counts.min()) >= 1 and self.n_servers >= cfg.top_s
             if self.compact_stage2:
                 starts = np.cumsum(counts) - counts
                 self._tool_start_g = self._to(starts, torch.int32)
@@ -675,8 +668,6 @@ class ShardedRoutingEngine:
                 self._tool_doc0_g = self._to(np.asarray(index.tool_doc_map)[starts], torch.int32)
                 k_slot = int(counts.max())
         else:
-            if compact_stage2:
-                raise ValueError("compact_stage2 requires a TiledFleetIndex")
             ws = np.asarray(index.server_corpus.weights, np.float32)
             wt = np.asarray(index.tool_corpus.weights, np.float32)
             self._w_server_sh = self._to(ws[plan.server_gid], torch.float32)
@@ -699,13 +690,7 @@ class ShardedRoutingEngine:
 
         # SONAR-ADAPT learner: one state on the device, updated once per
         # route; every shard fuses with the same weight tensor
-        self.adapt_cfg: Optional[_adaptive.AdaptConfig] = None
-        self.adapt_state: Optional[_adaptive.AdaptState] = None
-        self._fb_rewards: list = []
-        self._fb_feats: list = []
-        if self.algo == "sonar_adapt" or adapt is not None:
-            self.adapt_cfg = adapt if adapt is not None else _adaptive.AdaptConfig()
-            self.adapt_state = _adaptive.init_state(cfg, self.adapt_cfg, self.device)
+        self.learner = _adaptive.FeedbackLearner.for_engine(self.algo, cfg, adapt, self.device)
 
     def _to(self, x, dtype) -> torch.Tensor:
         """Host array (or tensor) -> this engine's device, cast to ``dtype``."""
@@ -727,15 +712,11 @@ class ShardedRoutingEngine:
     # -- SONAR-ADAPT feedback (mirrors BatchRoutingEngine) -------------------
     @property
     def adapt_weights(self) -> Optional[np.ndarray]:
-        if self.adapt_state is None:
-            return None
-        return self.adapt_state.weights.cpu().numpy().astype(np.float32)
+        return None if self.learner is None else self.learner.weights
 
     def observe_feedback(self, latency_ms: float, ok: bool = True, feats=None) -> None:
-        if self.adapt_state is None or feats is None:
-            return
-        self._fb_rewards.append(_adaptive.shape_reward(latency_ms, ok, self.adapt_cfg.slo_ms))
-        self._fb_feats.append(np.asarray(feats, np.float32))
+        if self.learner is not None:
+            self.learner.observe(latency_ms, ok, feats)
 
     # -- sharding helpers ---------------------------------------------------
     def _shard_vec(self, x) -> torch.Tensor:
@@ -835,13 +816,9 @@ class ShardedRoutingEngine:
             dyn["dead"] = self._shard_vec(np.asarray(failed_mask, np.float32))
         if self.uses_affinity and affinity is not None and self.cfg.eps != 0.0:
             dyn["aff"] = self._shard_vec(affinity)
-        if self.adapt_state is not None and self.adapt_cfg.lr != 0.0:
-            # apply pending EG updates once, then route with the weights
-            # (lr == 0 keeps the static program: byte-identical to the
-            # hand-tuned variant's)
-            self.adapt_state = _adaptive.apply_feedback(
-                self.adapt_state, self._fb_rewards, self._fb_feats, self.adapt_cfg)
-            dyn["adapt_w"] = self.adapt_state.weights
+        adapt_w = None if self.learner is None else self.learner.pending_weights()
+        if adapt_w is not None:
+            dyn["adapt_w"] = adapt_w
         with torch.profiler.record_function("netmcp.route_sharded"):
             server_idx, tool_idx, c, n, s = _route_sharded(dyn, self._sc)
         return BatchDecisions(

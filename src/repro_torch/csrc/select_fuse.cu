@@ -19,9 +19,12 @@
 //   * One block per query (no query tiles, no 128-lane padding: any width
 //     n_tools >= 1, any n_q).  The block is as wide as the row up to 256
 //     threads.  Blocks run in any order and share nothing.
-//   * The `sel` row is clamped to NEG and staged in shared memory when it
-//     fits (up to 200 KB, opted in above 48 KB); wider rows are read from
-//     global memory (through L2) in every round.
+//   * The `sel` row is read from global memory in every round and clamped
+//     to NEG as it is read.  On the paths that call the kernel the row is at
+//     most [20010] f32 (80 KB) and stays in L2 across the rounds; at the
+//     mega tail's [16] the kernel is bound by its barriers and its serial
+//     finale, not by reads, so a shared-memory copy of the row would buy
+//     nothing there.
 //   * k rounds of a block-wide argmax under (score desc, index asc): a round
 //     considers only the entries that rank after the previous round's pick
 //     in that total order, so nothing is marked or written back and the
@@ -51,7 +54,6 @@ using select_tail::Weights;
 
 constexpr int K_MAX = 128;
 constexpr int MAX_THREADS = 256;
-constexpr int SMEM_ROW_MAX = 200 * 1024;  // bytes of a staged `sel` row
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -75,9 +77,8 @@ __device__ __forceinline__ void warp_best(float& bs, int& bg) {
 template <typename TV>
 __global__ void __launch_bounds__(MAX_THREADS) select_fuse_kernel(
     const float* __restrict__ sel, const TV* __restrict__ val, Rows rows, Weights wt, int n_t,
-    int k, int staged, int* __restrict__ out_idx, float* __restrict__ out_c,
+    int k, int* __restrict__ out_idx, float* __restrict__ out_c,
     float* __restrict__ out_n, float* __restrict__ out_s) {
-  extern __shared__ float row_sh[];  // [n_t] clamped sel row when staged
   __shared__ float cand_sel[K_MAX], cand_val[K_MAX];
   __shared__ int cand_gid[K_MAX];
   __shared__ float red_s[MAX_THREADS / 32];
@@ -88,18 +89,13 @@ __global__ void __launch_bounds__(MAX_THREADS) select_fuse_kernel(
   const int nthr = blockDim.x;
   const float* src = sel + qi * n_t;
 
-  if (staged) {
-    for (int e = tid; e < n_t; e += nthr) row_sh[e] = fmaxf(src[e], NEG);
-    __syncthreads();
-  }
-
   float prev_s = 0.0f;
   int prev_g = -1;  // no pick yet
   for (int j = 0; j < k; ++j) {
     float bs = neg_inf();
     int bg = INT_MAX;
     for (int e = tid; e < n_t; e += nthr) {
-      const float s = staged ? row_sh[e] : fmaxf(src[e], NEG);
+      const float s = fmaxf(src[e], NEG);
       if (prev_g >= 0 && !beats(prev_s, prev_g, s, e)) continue;  // already picked
       if (beats(s, e, bs, bg)) {
         bs = s;
@@ -136,18 +132,9 @@ __global__ void __launch_bounds__(MAX_THREADS) select_fuse_kernel(
 template <typename TV>
 int launch(const float* sel, const void* val, const Rows& rows, const Weights& wt, int n_q,
            int n_t, int k, int* idx, float* c, float* n, float* s, cudaStream_t stream) {
-  auto kern = select_fuse_kernel<TV>;
-  const size_t row_bytes = static_cast<size_t>(n_t) * sizeof(float);
-  const int staged = row_bytes <= static_cast<size_t>(SMEM_ROW_MAX);
-  const size_t smem = staged ? row_bytes : 0;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   const int threads = n_t >= MAX_THREADS ? MAX_THREADS : ((n_t + 31) / 32) * 32;
-  kern<<<n_q, threads, smem, stream>>>(sel, static_cast<const TV*>(val), rows, wt, n_t, k,
-                                       staged, idx, c, n, s);
+  select_fuse_kernel<TV><<<n_q, threads, 0, stream>>>(sel, static_cast<const TV*>(val), rows,
+                                                       wt, n_t, k, idx, c, n, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -207,7 +207,7 @@ def test_engine_trajectory_matches_reference(sharded):
             for a, b in ((got.expertise, want.expertise), (got.network, want.network),
                          (got.fused, want.fused)):
                 np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL)
-            _state_close(p.adapt_state, ref.adapt_state, f"after {fed} outcomes")
+            _state_close(p.learner.state, ref.adapt_state, f"after {fed} outcomes")
     assert not np.array_equal(ports[0].adapt_weights, np.asarray(
         adaptive.init_state(cfg, acfg).weights))
 

@@ -281,13 +281,13 @@ def test_device_rule_and_deferred_adapt(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_engine("sonar_adapt", servers)
     eng = make_engine("sonar_adapt", servers, device="cpu")
-    assert eng.adapt_state is not None and eng.adapt_state.weights.device.type == "cpu"
+    assert eng.learner is not None and eng.learner.state.weights.device.type == "cpu"
     cfg = RoutingConfig()
     assert eng.adapt_weights.tobytes() == np.asarray(
         [cfg.alpha, cfg.beta, cfg.gamma, cfg.delta], np.float32).tobytes()
-    assert make_engine("sonar", servers, device="cpu").adapt_state is None
+    assert make_engine("sonar", servers, device="cpu").learner is None
     lr0 = make_engine("sonar", servers, device="cpu", adapt=AdaptConfig(lr=0.0))
-    assert lr0.adapt_cfg.lr == 0.0 and lr0.adapt_state is not None
+    assert lr0.learner.cfg.lr == 0.0 and lr0.learner.pending_weights() is None
     assert isinstance(routing.make_router("sonar-adapt", servers), SonarAdaptRouter)
 
 

@@ -158,8 +158,8 @@ def test_engine_kernel_path_equals_plain_path(cuda):
 @pytest.mark.parametrize("variant", ["broadcast", "per_query", "bf16", "live_aff", "all_invalid",
                                      "all_dead", "k128", "wide", "temp", "one_tool", "narrow"])
 def test_select_kernel_matches_plain(cuda, variant):
-    """fused_select against its plain version at widths from 1 to 60,000
-    (the widest read from global memory), with -inf entries and ties."""
+    """fused_select against its plain version at widths from 1 to 60,000,
+    with -inf entries and ties."""
     n_q, n_t = {"wide": (9, 60_000), "one_tool": (5, 1), "narrow": (256, 16),
                 "k128": (33, 20_010)}.get(variant, (37, 300))
     g = torch.Generator(device=cuda).manual_seed(len(variant))

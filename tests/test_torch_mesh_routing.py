@@ -256,26 +256,52 @@ def test_tiled_fleet_matches_reference_and_densified(algo):
     _same(dense.route_texts(QUERY_TEXTS, compact[tel_map], **op), want, f"densified {algo}")
 
 
-@pytest.mark.parametrize("compact_stage2", [False, True])
-def test_tiled_dense_telemetry_and_per_query_rows(compact_stage2):
-    """Tiled index with dense shared and per-query telemetry windows, on
-    both stage-2 paths (full tool axis, and candidate-compacted)."""
-    n, n_q = 30, len(QUERY_TEXTS)
-    rng = np.random.default_rng(8)
+def _dense_telemetry_operands(n, seed):
+    rng = np.random.default_rng(seed)
+    n_q = len(QUERY_TEXTS)
     hist = rng.uniform(5.0, 400.0, (n, 24)).astype(np.float32)
     hist_q = rng.uniform(5.0, 400.0, (n_q, n, 24)).astype(np.float32)
     load_q = (rng.random((n_q, n)) * 2.0).astype(np.float32)
     mask_q = rng.random((n_q, n)) < 0.3
+    return (hist,), (hist_q, load_q, None, mask_q)
+
+
+@pytest.mark.parametrize("compact_stage2", [False, True])
+def test_tiled_dense_telemetry_and_per_query_rows(compact_stage2):
+    """Tiled index with dense shared and per-query telemetry windows: the
+    port's candidate-compacted stage 2 against the reference's stage 2 on
+    its full tool axis (False) and compacted (True)."""
+    n = 30
     j_cfg, cfg = _cfg(top_s=4, top_k=6)
     idx, j_idx = mega_fleet_index(n), j_mega_fleet_index(n)
     for algo in ("rerank_rag", "sonar_ft", "sonar_adapt"):
-        for args in ((hist,), (hist_q, load_q, None, mask_q)):
+        for args in _dense_telemetry_operands(n, 8):
             want = JSharded(cfg=j_cfg, algo=algo, n_shards=3, use_kernels=False, index=j_idx,
                             compact_stage2=compact_stage2).route_texts(QUERY_TEXTS, *args)
-            eng = make_sharded_engine(algo, cfg=cfg, n_shards=3, index=idx, device="cpu",
-                                      compact_stage2=compact_stage2)
+            eng = make_sharded_engine(algo, cfg=cfg, n_shards=3, index=idx, device="cpu")
+            assert eng.compact_stage2
             _same(eng.route_texts(QUERY_TEXTS, *args), want,
-                  f"{algo} compact={compact_stage2} ndim={args[0].ndim}")
+                  f"{algo} reference compact={compact_stage2} ndim={args[0].ndim}")
+
+
+@pytest.mark.parametrize("algo", ["rag", "sonar_ft", "sonar_adapt"])
+def test_tiled_fleet_smaller_than_top_s_takes_full_tool_axis(algo):
+    """A tiled fleet with fewer servers than top_s does not qualify for
+    the compacted stage 2: the port's full-tool-axis tiled path against the
+    reference's, with dense shared and per-query telemetry, both branches."""
+    n = 3
+    j_cfg, cfg = _cfg(top_s=4, top_k=6)
+    idx, j_idx = mega_fleet_index(n), j_mega_fleet_index(n)
+    for args in _dense_telemetry_operands(n, 12):
+        ref = JSharded(cfg=j_cfg, algo=algo, n_shards=2, use_kernels=False, index=j_idx)
+        assert not ref.compact_stage2
+        want = ref.route_texts(QUERY_TEXTS, *args)
+        for use_kernels in (False, True):
+            eng = make_sharded_engine(algo, cfg=cfg, n_shards=2, index=idx, device="cpu",
+                                      use_kernels=use_kernels)
+            assert not eng.compact_stage2
+            _same(eng.route_texts(QUERY_TEXTS, *args), want,
+                  f"{algo} use_kernels={use_kernels} ndim={args[0].ndim}")
 
 
 def test_kernel_path_parity_with_pallas_interpret():
@@ -316,7 +342,7 @@ def test_region_rtt_gather_dense_shards():
 def test_device_rule_mesh_route_stats_and_empty_batch(monkeypatch):
     idx = mega_fleet_index(20)
     eng = make_sharded_engine("sonar_adapt", index=idx, device="cpu")
-    assert eng.use_kernels is False and eng.adapt_state is not None
+    assert eng.use_kernels is False and eng.learner is not None
     assert eng.mesh is None
     assert make_sharded_engine("sonar", index=idx, device="cpu", mesh="auto").mesh is None
     dec = eng.route_texts([])
