@@ -12,14 +12,22 @@ batches.  The mega-fleet path,
 ``make_sharded_engine(algo, index=mega_fleet_index(1_000_000)).route_texts(...)``,
 runs all nine algorithms (SONAR-ADAPT included) over 4 emulated shards of a
 template-tiled million-server fleet with bf16 weights and compact telemetry
-(the ``--max`` point of ``benchmarks/mega_fleet.py``).
+(the ``--max`` point of ``benchmarks/mega_fleet.py``).  The serving path,
+``ServeEngine(get_model(cfg), params, n_slots=8, cap=2048).drain()``, serves
+16 requests through internlm2-1.8b at full width and depth (24 layers,
+d_model 2048, 16/8 heads, vocab 92672, bf16, random weights drawn on the
+card from a seed) with ``attn_impl="pallas"``: the flash-attention kernel
+in every prefill, the flash-decode kernel in every decode step.
 
 1. set-up: TF32 off, the card's name and power limit, both fleets, the
    queries and seeded telemetry;
 2. each CUDA kernel (built from ``src/repro_torch/csrc`` on first use)
    against its plain PyTorch version at its paths' shapes (``fused_select``
    at the mega tail's [256, 16], a dense-shard merge [256, 4 x 16] and the
-   full tool axis [256, 20010]);
+   full tool axis [256, 20010]); the attention kernels at the serving
+   shapes (flash prefill [1, 16, S, 128] against 8 kv heads in the model's
+   strided layout, flash decode of 8 slots against [8, 2048, 8, 128]
+   caches with lengths 1 to 2048), bf16 and f32;
 3. the single-device path with the launch counters set to 0: every
    kernel-path decision equal to the plain path's on the same card, every
    counter risen by exactly one launch per route, a per-query telemetry
@@ -30,17 +38,29 @@ template-tiled million-server fleet with bf16 weights and compact telemetry
    once per sharded route; then the sharded engine against the densified
    single engine at 100,000 servers, and SONAR-ADAPT feedback rounds
    (lr > 0) on both engines, kernel path against plain path;
+3c. the serving path with the counters set to 0 again: 16 requests
+   (seeded prompts of 64 to 1536 tokens, 32 new tokens each) through 8
+   slots to ``drain``; every request must finish, ``flash_attention`` must
+   launch 24 times per admitted request and ``decode_attention`` 24 times
+   per decode step; then the same requests teacher-forced through a
+   plain-path engine (``attn_impl="chunked"``, no kernel) on the same
+   weights: every first token equal, every prefill and decode row of logits
+   within ``SERVE_TOL``, and every argmax that differs within it too;
 4. times: each kernel's median over CUDA-event-timed launches beside its
    plain version, one library call where there is one, and its bound; the
    end-to-end ``route_texts`` time per batch on both paths; a profile of one
-   route of each path.
+   route of each path; the attention kernels at the serving shapes beside
+   their plain versions and ``scaled_dot_product_attention``; a profile of
+   one 1536-token prefill and one 8-slot decode step of internlm2-1.8b.
 
 The line before the last is the ``kernels`` JSON object; the last is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -53,6 +73,18 @@ SRC = ROOT / "src"
 RTOL, ATOL = 2e-6, 2e-7          # the port's parity tolerance for C, N, S
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM, f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12          # H100 SXM, bf16 dense tensor cores
+ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # rtol = atol, tests/test_kernels.py's
+# Teacher-forced serving: max |logit difference| between the kernel path
+# (P kept in f32) and the plain path (P rounded to bf16 before PV, sums in
+# other orders) over every prefill and decode row, on logits of std ~1.
+# bf16 activations round differently on the two paths, and the difference
+# grows over 24 layers and 32 decode steps (on an H100 this run reads about
+# 0.09 in prefill and 0.23 in decode; PERF.md).  This holds the whole
+# serving path to the plain path; the kernels themselves are held to their
+# plain versions at rtol = atol = 2e-2 (bf16) in phase 2 and in
+# tests/test_torch_cuda.py.
+SERVE_TOL = 0.5
 ALGOS = ("rag", "rerank_rag", "prag", "sonar", "sonar_lb", "sonar_ft",
          "sonar_geo", "sonar_session")
 MEGA_ALGOS = ALGOS + ("sonar_adapt",)
@@ -61,12 +93,16 @@ REPLACES = {
     "qos_scores": "src/repro/kernels/qos_score.py:32",
     "fused_score_select": "src/repro/kernels/score_fuse.py:53",
     "fused_select": "src/repro/kernels/select_fuse.py:66",
+    "flash_attention": "src/repro/kernels/flash_attention.py:34",
+    "decode_attention": "src/repro/kernels/decode_attention.py:28",
 }
 SOURCES = {
     "bm25_scores": "src/repro_torch/csrc/bm25_score.cu",
     "qos_scores": "src/repro_torch/csrc/qos_score.cu",
     "fused_score_select": "src/repro_torch/csrc/score_fuse.cu",
     "fused_select": "src/repro_torch/csrc/select_fuse.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
 }
 
 
@@ -83,6 +119,104 @@ def setup_imports():
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         fail(f"the port's sources are missing: no {SRC / 'repro_torch'}")
     sys.path.insert(0, str(SRC))
+
+
+def serve_requests(cfg, plain_cfg, params, dev, n_slots, cap, prompts, max_new, tol):
+    """The serving path: ``prompts`` through a `ServeEngine` of ``cfg``
+    (the kernel path) to `drain`, with the kernels' launch counters set to 0
+    just before and read just after; then the same requests, teacher-forced
+    with the kernel path's tokens, through an engine of ``plain_cfg`` (the
+    plain PyTorch attention) on the same weights.  Every prefill and decode
+    row of logits is compared: the max abs difference must stay within
+    ``tol``, every first token must be equal, and wherever the plain path's
+    argmax differs from the kernel path's token, the plain logit of that
+    token must be within ``tol`` of the plain maximum (so the top-2 margin
+    is too).  Returns a dict of what was seen; fails on any breach."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import get_model
+    from repro_torch.obs import Observability
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    kernel_rows = {}                     # (rid, position) -> kernel logits row
+
+    class Recording(ServeEngine):
+        def _next_tokens(self, logits, reqs):
+            for i, r in enumerate(reqs):
+                if r is not None:
+                    kernel_rows[r.rid, len(r.generated)] = logits[i].clone()
+            return super()._next_tokens(logits, reqs)
+
+    stats = {"prefill_max_abs": 0.0, "decode_max_abs": 0.0, "rows": 0, "argmax_diffs": [],
+             "first_token_diffs": 0}
+
+    class TeacherForced(ServeEngine):
+        def _next_tokens(self, logits, reqs):
+            out = []
+            for i, r in enumerate(reqs):
+                if r is None:
+                    out.append(0)
+                    continue
+                pos = len(r.generated)
+                want = kernel_rows[r.rid, pos]
+                tok = kreqs[r.rid].generated[pos]
+                row = logits[i]
+                d = float((row - want).abs().max())
+                key = "prefill_max_abs" if pos == 0 else "decode_max_abs"
+                stats[key] = max(stats[key], d)
+                stats["rows"] += 1
+                top = int(torch.argmax(row))
+                if top != tok:
+                    gap = float(row[top] - row[tok])
+                    stats["argmax_diffs"].append((r.rid, pos, gap))
+                    stats["first_token_diffs"] += int(pos == 0)
+                out.append(tok)
+            return out
+
+    def requests():
+        return [Request(rid=i, tokens=t, max_new_tokens=max_new) for i, t in enumerate(prompts)]
+
+    obs = Observability()
+    keng = Recording(get_model(cfg), params, n_slots=n_slots, cap=cap, device=dev, obs=obs)
+    kreqs = requests()
+    for r in kreqs:
+        keng.submit(r)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    ops.reset_launches()                       # the serving path's count starts here
+    t0 = time.perf_counter()
+    steps = keng.drain()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()             # ... and is read here
+    reg = obs.registry
+    if not all(r.done and len(r.generated) == max_new for r in kreqs):
+        fail(f"serving: {sum(not r.done for r in kreqs)} requests did not finish")
+    before = ops.launch_counts()
+    peng = TeacherForced(get_model(plain_cfg), params, n_slots=n_slots, cap=cap, device=dev)
+    preqs = requests()
+    for r in preqs:
+        peng.submit(r)
+    psteps = peng.drain()
+    if ops.launch_counts() != before:
+        fail("serving: the plain path launched an attention kernel")
+    if psteps != steps or [r.generated for r in preqs] != [r.generated for r in kreqs]:
+        fail("serving: the teacher-forced plain engine took another schedule")
+    if stats["first_token_diffs"]:
+        fail(f"serving: {stats['first_token_diffs']} first tokens differ between the kernel "
+             "and plain paths")
+    worst = max(stats["prefill_max_abs"], stats["decode_max_abs"])
+    if not worst <= tol:
+        fail(f"serving: logits differ by {worst} between the kernel and plain paths "
+             f"(tolerance {tol})")
+    bad = [d for d in stats["argmax_diffs"] if d[2] > tol]
+    if bad:
+        fail(f"serving: argmax differs beyond the tolerance at {bad[:5]}")
+    return dict(stats, steps=steps, wall_s=wall, launches=launches,
+                admitted=int(reg.value("engine_admitted_total")),
+                tokens=int(reg.value("engine_tokens_total")), requests=kreqs)
 
 
 def main(rehearse: bool) -> None:
@@ -106,12 +240,14 @@ def main(rehearse: bool) -> None:
         dev = torch.device("cpu")
         n_per_template, n_q, n_q_perq, reps = 2, 24, 8, 3
         n_mega, n_par = 2_000, 1_000
+        S_att = 256
     else:
         if not torch.cuda.is_available():
             fail("torch.cuda.is_available() is False: this script needs a CUDA card")
         dev = torch.device("cuda")
         n_per_template, n_q, n_q_perq, reps = 667, 256, 64, 25
         n_mega, n_par = 1_000_000, 100_000
+        S_att = 2048
 
     def sync():
         if dev.type == "cuda":
@@ -196,6 +332,13 @@ def main(rehearse: bool) -> None:
                                 **geo),
         }.get(algo, {})
         return dict(ex, telemetry_templates=(compact, tel_map[:n]))
+
+    def attn_close(a, b, tol, what):
+        a, b = a.float().cpu(), b.float().cpu()
+        if a.shape != b.shape or not torch.allclose(a, b, rtol=tol, atol=tol):
+            fail(f"{what}: kernel and plain version disagree beyond rtol = atol = {tol} "
+                 f"(max abs {float((a - b).abs().max()) if a.shape == b.shape else 'shape'})")
+        return float((a - b).abs().max())
 
     def close(a, b, what):
         a, b = a.float().cpu(), b.float().cpu()
@@ -336,6 +479,44 @@ def main(rehearse: bool) -> None:
             log(f"phase 2: fused_select [{name}] {list(a[0].shape)} k {k['k']}: decisions "
                 f"equal, max abs err {max(errs[-3:])}")
         max_err["fused_select"] = max(errs)
+
+        # the attention kernels at the serving path's shapes: flash prefill of
+        # 16 query heads against 8 kv heads, head_dim 128, causal, in the
+        # model's [B, S, H, D] layout as strided views (S_att and a ragged
+        # S_att/2 - 24); flash decode of 8 slots against [8, S_att, 8, 128]
+        # caches (strided views) with lengths 1 .. S_att
+        ga = torch.Generator(device=dev).manual_seed(11)
+
+        def attn_rand(shape, dt):
+            return torch.randn(shape, generator=ga, device=dev).to(dt)
+
+        att_err = {}
+        for dt in (torch.bfloat16, torch.float32):
+            tol = ATTN_TOL[str(dt).split(".")[1]]
+            for S in (S_att, S_att // 2 - 24):
+                q, k, v = attn_rand((1, S, 16, 128), dt), attn_rand((1, S, 8, 128), dt), attn_rand((1, S, 8, 128), dt)
+                got = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+                want = kref.mha_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                    sm_scale=1 / math.sqrt(128), causal=True)
+                sync()
+                att_err["flash_attention", dt, S] = attn_close(got, want, tol, f"flash {dt} S {S}")
+            qd = attn_rand((8, 16, 128), dt)
+            kc, vc = attn_rand((8, S_att, 8, 128), dt), attn_rand((8, S_att, 8, 128), dt)
+            lens_d = torch.tensor([1, S_att, 63, 64, 65, S_att // 2 - 24, S_att - 1, 200],
+                                  dtype=torch.int32, device=dev)
+            got = ops.decode_attention(qd, kc.transpose(1, 2), vc.transpose(1, 2), lens_d)
+            want = kref.decode_ref(qd.reshape(8, 8, 2, 128), kc.transpose(1, 2),
+                                   vc.transpose(1, 2), lens_d.reshape(8, 1),
+                                   sm_scale=1 / math.sqrt(128)).reshape(8, 16, 128)
+            sync()
+            att_err["decode_attention", dt, S_att] = attn_close(got, want, tol, f"decode {dt}")
+        for name in ("flash_attention", "decode_attention"):
+            # the JSON's error is the serving path's dtype's (bf16)
+            max_err[name] = max(e for (n, dt, _), e in att_err.items()
+                                if n == name and dt == torch.bfloat16)
+        log("phase 2: attention kernels vs plain versions, max abs err (tolerance rtol = atol = "
+            f"{ATTN_TOL}): " + "; ".join(f"{n} {str(dt).split('.')[1]} S {S}: {e:.3g}"
+                                          for (n, dt, S), e in att_err.items()))
         d_single = make_engine("sonar_ft", servers, mcfg, device=dev, index=index).route_texts(
             batches[0], **ft_kw)
     log(f"phase 2: kernels agree with their plain versions: {max_err}")
@@ -539,6 +720,57 @@ def main(rehearse: bool) -> None:
         log(f"phase 3b (d): SONAR-ADAPT {label}: 3 feedback rounds, decisions equal, weights "
             f"{w0.tolist()} -> {ek.adapt_weights.tolist()} (plain {ep.adapt_weights.tolist()})")
 
+    # ----------------------------------------------------------------- 3c
+    # internlm2-1.8b at full width and depth (the reduced config's width at 2
+    # layers in the rehearsal), weights drawn on the card from a seed
+    from repro_torch import configs as lm_configs
+    from repro_torch.models.api import get_model
+
+    if rehearse:
+        lm_cfg = dataclasses.replace(lm_configs.get_reduced("internlm2-1.8b"), dtype="bfloat16")
+    else:
+        lm_cfg = lm_configs.get_config("internlm2-1.8b")
+    lm_cfg = dataclasses.replace(lm_cfg, attn_impl="pallas")
+    plain_cfg = dataclasses.replace(lm_cfg, attn_impl="chunked")
+    lm = get_model(lm_cfg)
+    t0 = time.perf_counter()
+    lm_params = lm.init_params(seed=0, device=dev)
+    sync()
+    n_params = sum(t.numel() for t in _leaves(lm_params))
+    log(f"phase 3c: {lm_cfg.name}: {lm_cfg.n_layers} layers, d_model {lm_cfg.d_model}, "
+        f"{lm_cfg.n_heads}/{lm_cfg.n_kv_heads} heads of {lm_cfg.resolved_head_dim}, d_ff "
+        f"{lm_cfg.d_ff}, vocab {lm_cfg.padded_vocab}, {lm_cfg.dtype}: {n_params:,} parameters "
+        f"drawn on {dev} in {time.perf_counter() - t0:.2f} s")
+    srng = np.random.default_rng(7)
+    prompt_lens = srng.integers(64, 1537, 16)
+    prompts = [srng.integers(0, lm_cfg.vocab_size, int(n)).astype(np.int32) for n in prompt_lens]
+    sv = serve_requests(lm_cfg, plain_cfg, lm_params, dev, n_slots=8, cap=2048, prompts=prompts,
+                        max_new=32, tol=SERVE_TOL)
+    slaunches = sv["launches"]
+    want_launches = {"flash_attention": lm_cfg.n_layers * sv["admitted"],
+                     "decode_attention": lm_cfg.n_layers * sv["steps"]}
+    log(f"phase 3c: served {len(prompts)} requests (prompts {sorted(prompt_lens.tolist())} "
+        f"tokens, 32 new each) through 8 slots in {sv['steps']} decode steps, "
+        f"{sv['wall_s']:.3f} s wall, {sv['tokens']} tokens generated "
+        f"({sv['tokens'] / sv['wall_s']:.1f} tokens/s, host clock); launches {slaunches}")
+    if not rehearse:
+        for name, n in want_launches.items():
+            if slaunches[name] == 0:
+                fail(f"{name}: the serving path never launched its kernel")
+            if slaunches[name] != n:
+                fail(f"{name}: {slaunches[name]} launches, expected {n} "
+                     f"({lm_cfg.n_layers} layers x {n // lm_cfg.n_layers})")
+        others = {k: v for k, v in slaunches.items() if k not in want_launches and v}
+        if others:
+            fail(f"the serving path launched routing kernels: {others}")
+    gaps = [g for _, _, g in sv["argmax_diffs"]]
+    log(f"phase 3c: teacher-forced plain path (attn_impl='chunked') over {sv['rows']} rows of "
+        f"logits: max abs difference prefill {sv['prefill_max_abs']:.4f}, decode "
+        f"{sv['decode_max_abs']:.4f} (tolerance {SERVE_TOL}); first tokens all equal; "
+        f"{len(gaps)} argmax differences, largest plain-logit gap "
+        f"{max(gaps, default=0.0):.4f}")
+    del lm_params             # phase 4 measures the routing paths' memory without them
+
     # ------------------------------------------------------------------ 4
     def timed(fn, n=reps):
         """Median ms of ``n`` calls after two warm-up calls (CUDA events on the card)."""
@@ -560,8 +792,8 @@ def main(rehearse: bool) -> None:
                 out.append((time.perf_counter() - t) * 1e3)
         return statistics.median(out)
 
-    def bound(n_bytes, n_ops):
-        tb, to = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
+    def bound(n_bytes, n_ops, ops_per_s=FP32_OPS_PER_S):
+        tb, to = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / ops_per_s * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
 
     rows = []
@@ -625,14 +857,45 @@ def main(rehearse: bool) -> None:
         wide_sel = dict(ms=timed(lambda: ops.fused_select(*wa, **wk)),
                         plain_ms=timed(lambda: kref.fused_select_ref(*wa, **wk),
                                        n=max(3, reps // 5)))
+        # the attention kernels at the serving shapes, bf16: flash prefill
+        # [1, 16, S_att, 128] against 8 kv heads, causal (operations: 4 Hq
+        # S^2 D / 2 at the bf16 tensor-core peak; bytes: q, k, v read and the
+        # output written once); flash decode of 8 slots against full
+        # [8, 8, S_att, 128] caches (bytes: every K and V row read once)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        bf = torch.bfloat16
+        qf, kf, vf = attn_rand((1, 16, S_att, 128), bf), attn_rand((1, 8, S_att, 128), bf), \
+            attn_rand((1, 8, S_att, 128), bf)
+        rows.append(dict(
+            name="flash_attention", ms=timed(lambda: ops.flash_attention(qf, kf, vf)),
+            plain_ms=timed(lambda: kref.mha_ref(qf, kf, vf, sm_scale=1 / math.sqrt(128))),
+            library_ms=timed(lambda: sdpa(qf, kf, vf, is_causal=True, enable_gqa=True)),
+            bound=bound(2 * (2 * qf.numel() + kf.numel() + vf.numel()),
+                        4 * 16 * S_att * S_att * 128 / 2, BF16_OPS_PER_S),
+            shape=f"[1, 16, {S_att}, 128] x 8 kv heads, causal, bf16"))
+        qd, kd, vd = attn_rand((8, 16, 128), bf), attn_rand((8, S_att, 8, 128), bf), attn_rand((8, S_att, 8, 128), bf)
+        full = torch.full((8,), S_att, dtype=torch.int32, device=dev)
+        kt, vt = kd.transpose(1, 2), vd.transpose(1, 2)
+        rows.append(dict(
+            name="decode_attention",
+            ms=timed(lambda: ops.decode_attention(qd, kt, vt, full)),
+            plain_ms=timed(lambda: kref.decode_ref(qd.reshape(8, 8, 2, 128), kt, vt,
+                                                   full.reshape(8, 1), sm_scale=1 / math.sqrt(128))),
+            library_ms=timed(lambda: sdpa(qd[:, :, None], kt, vt, enable_gqa=True)),
+            bound=bound(2 * (2 * kd.numel() + 2 * qd.numel()), 4 * 8 * 16 * S_att * 128,
+                        BF16_OPS_PER_S),
+            shape=f"8 slots x 16 heads against [8, {S_att}, 8, 128] caches, bf16"))
     per_route = {n: launches[n] / max(routes[n], 1) for n in routes}
     per_route["fused_select"] = mlaunches["fused_select"] / max(mroutes["fused_select"], 1)
+    per_route["flash_attention"] = slaunches["flash_attention"] / max(sv["admitted"], 1)
+    per_route["decode_attention"] = slaunches["decode_attention"] / max(sv["steps"], 1)
     for r in rows:
         log(f"phase 4: {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library "
             f"{'n/a' if r['library_ms'] is None else format(r['library_ms'], '.4f') + ' ms'}, "
             f"bound {r['bound'][0]:.5f} ms by {r['bound'][1]}, "
-            f"launches per route call {per_route[r['name']]:.2f}")
+            f"launches per route call (per request, per decode step for attention) "
+            f"{per_route[r['name']]:.2f}")
     log(f"phase 4: bm25_scores dense-product bound {rows[0]['dense_bound_ms']:.5f} ms")
     log(f"phase 4: qos_scores per-query [{flat.shape[0]}, {T}]: kernel {perq['ms']:.4f} ms, "
         f"plain {perq['plain_ms']:.4f} ms, bound {perq['bound'][0]:.5f} ms by {perq['bound'][1]}")
@@ -691,6 +954,7 @@ def main(rehearse: bool) -> None:
         log(f"phase 4: profile of {what}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
             f"({100 * busy / wall:.1f} %), top kernels (us): "
             + "; ".join(f"{k[:48]} {v:.1f}" for k, v in top))
+        return wall, busy
 
     if dev.type == "cuda":
         eng = engines["sonar"][0]
@@ -711,10 +975,31 @@ def main(rehearse: bool) -> None:
         profile(f"fused_select call {list(sa[0].shape)} k {sk['k']}",
                 lambda: ops.fused_select(*sa, **sk))
 
+    # the serving path's two calls at internlm2-1.8b's full width: one
+    # prefill of 1536 tokens, one decode step of 8 slots at cache_len 1536
+    # (the weights drawn again from the same seed)
+    lm_params = lm.init_params(seed=0, device=dev)
+    t1536 = torch.as_tensor(np.random.default_rng(8).integers(0, lm_cfg.vocab_size, (1, 1536)),
+                            device=dev)
+    cache8 = lm.init_cache(8, 2048, device=dev)
+    tok8 = torch.as_tensor(np.arange(8)[:, None], device=dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        pre_wall, pre_busy = profile("prefill of 1536 tokens (internlm2-1.8b, bf16)",
+                                     lambda: lm.prefill(lm_params, {"tokens": t1536}))
+        dec_wall, dec_busy = profile("decode step of 8 slots at cache_len 1536 (internlm2-1.8b)",
+                                     lambda: lm.decode_step(lm_params, cache8, tok8, 1536))
+        log(f"phase 4: serving: prefill 1536 tokens {pre_wall:.3f} ms wall "
+            f"({pre_busy:.3f} ms device); decode step of 8 slots {dec_wall:.3f} ms wall "
+            f"({dec_busy:.3f} ms device, {8e3 / dec_wall:.1f} tokens/s at 8 slots); peak device "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
     kernels = [
         dict(name=r["name"], route="cuda", source=SOURCES[r["name"]],
              replaces=REPLACES[r["name"]],
-             launches=(mlaunches if r["name"] == "fused_select" else launches)[r["name"]],
+             launches=(mlaunches if r["name"] == "fused_select" else
+                       slaunches if r["name"] in ("flash_attention", "decode_attention")
+                       else launches)[r["name"]],
              max_abs_err=max_err[r["name"]], ms=r["ms"], plain_ms=r["plain_ms"],
              bound_ms=r["bound"][0], bound_by=r["bound"][1], library_ms=r["library_ms"])
         for r in rows
@@ -727,6 +1012,14 @@ def main(rehearse: bool) -> None:
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 if __name__ == "__main__":

@@ -8,7 +8,12 @@ objects hold), so this module imports nothing of the reference:
 * `routing_config_from_dict` rebuilds a `RoutingConfig` from
   ``dataclasses.asdict`` of the reference's, nested `QosParams` included;
 * `adapt_state_from_arrays` carries a SONAR-ADAPT learner state (weights,
-  reward baseline, step count) onto a device.
+  reward baseline, step count) onto a device;
+* `lm_params_from_arrays` turns an LM parameter tree (nested dicts of
+  numpy arrays, stacked ``groups`` with their leading layer axis) into the
+  port's tensors, bf16 included;
+* `model_config_from_dict` rebuilds a `ModelConfig` from
+  ``dataclasses.asdict`` of the reference's.
 
 A `TiledFleetIndex` needs no converter: the port builds it from the same
 templates with the same numpy code, byte-equal to the reference's.
@@ -25,6 +30,7 @@ from repro_torch.core.bm25 import Bm25Corpus
 from repro_torch.core.dataset import Server
 from repro_torch.core.qos import QosParams
 from repro_torch.core.routing import RoutingConfig, ToolIndex
+from repro_torch.models.config import ModelConfig
 
 
 def index_from_arrays(
@@ -76,3 +82,37 @@ def adapt_state_from_arrays(weights, baseline, step, device) -> AdaptState:
         baseline=torch.tensor(np.float32(baseline), dtype=torch.float32, device=dev),
         step=torch.tensor(int(step), dtype=torch.int32, device=dev),
     )
+
+
+def _tensor(x, device) -> torch.Tensor:
+    """One array as a tensor on ``device``.  bf16 arrays (``ml_dtypes``),
+    which `torch.from_numpy` refuses, are viewed as uint16 and then as
+    bfloat16: the same bits and no f32 round trip.  A read-only array (a
+    view of a JAX buffer) is copied first, since the port writes caches in
+    place."""
+    a = np.asarray(x)
+    if not a.flags.writeable:        # e.g. a view of a JAX buffer: one leaf copied at a time
+        a = a.copy()
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.to(device)
+
+
+def lm_params_from_arrays(tree, device):
+    """The port's LM parameters on ``device`` from the reference's tree
+    (nested dicts of arrays: ``embed``, ``final_norm``, ``head`` and the
+    stacked ``groups``), leaf for leaf, dtypes kept."""
+    dev = torch.device(device)
+    if isinstance(tree, Mapping):
+        return {k: lm_params_from_arrays(v, dev) for k, v in tree.items()}
+    return _tensor(tree, dev)
+
+
+def model_config_from_dict(d: Mapping) -> ModelConfig:
+    """`ModelConfig` from ``dataclasses.asdict`` of the reference's."""
+    d = dict(d)
+    if "block_pattern" in d:
+        d["block_pattern"] = tuple(d["block_pattern"])
+    return ModelConfig(**d)

@@ -9,6 +9,7 @@ kernels.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -16,6 +17,8 @@ import torch
 from repro_torch.core.bm25 import bm25_scores as _bm25_plain
 from repro_torch.core.qos import DEFAULT_QOS, QosParams, network_score
 from repro_torch.kernels import bm25_score as _bm25
+from repro_torch.kernels import decode_attention as _dec
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import qos_score as _qos
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import score_fuse as _scf
@@ -26,6 +29,8 @@ _LAUNCHERS = {
     "qos_scores": _qos.qos_scores_cuda,
     "fused_score_select": _scf.fused_score_select_cuda,
     "fused_select": _sel.fused_select_cuda,
+    "flash_attention": _fa.flash_attention_cuda,
+    "decode_attention": _dec.decode_attention_cuda,
 }
 
 
@@ -199,3 +204,47 @@ def fused_score_select(
         k=k, alpha=weights[0], beta=weights[1], gamma=weights[2], delta=weights[3],
         eps=eps, temp=temp, live_weights=live,
     )
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def flash_attention(
+    q: torch.Tensor,  # [B, Hq, S, D]
+    k: torch.Tensor,  # [B, Hkv, Sk, D]
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Causal/GQA attention softmax(q k^T / sqrt(D)) v with f32 math, in q's
+    dtype.  Any S, no padding; on the card any strides with a contiguous
+    last dim (a transposed view of [B, S, H, D] goes in without a copy) and
+    all three in one dtype, float32 or bfloat16."""
+    sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if not _on_cuda(q, k, v):
+        return kref.mha_ref(q, k, v, sm_scale=sm_scale, causal=causal)
+    return _fa.flash_attention_cuda(q, k, v, sm_scale=sm_scale, causal=causal)
+
+
+def decode_attention(
+    q: torch.Tensor,        # [B, Hq, D]: one new token per sequence
+    k: torch.Tensor,        # [B, Hkv, S, D]
+    v: torch.Tensor,
+    lengths: torch.Tensor,  # [B] valid cache lengths
+) -> torch.Tensor:
+    """Single-token GQA attention over a variable-length cache (scale
+    1/sqrt(D)) -> [B, Hq, D] in q's dtype.  On the card k/v may be any
+    strided view with a contiguous last dim (the model's [B, S, Hkv, D]
+    cache, transposed)."""
+    B, Hq, D = q.shape
+    Hkv = k.shape[1]
+    G = Hq // Hkv
+    sm_scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(B, Hkv, G, D)
+    if not _on_cuda(q, k, v, lengths):
+        out = kref.decode_ref(qg, k, v, lengths.reshape(B, 1), sm_scale=sm_scale)
+    else:
+        out = _dec.decode_attention_cuda(
+            qg, k, v, lengths.to(torch.int32).contiguous(), sm_scale=sm_scale)
+    return out.reshape(B, Hq, D)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the stage-2 kernels, port of `repro.kernels.ref`.
+"""Plain PyTorch versions of the kernels, port of `repro.kernels.ref`.
 
 `fused_select_ref` is the unfused stage-2 tail (top-k, softmax, fusion,
 argmax) over materialised score matrices: the oracle of the batched
@@ -10,6 +10,10 @@ wrapper in `kernels/ops.py` runs for CPU tensors.
 The softmax denominator is summed over the k slots in order, as the
 kernel does, and every top-k is a stable sort, so ties break toward the
 lower tool id as ``lax.top_k`` does.
+
+`mha_ref` and `decode_ref` are the plain versions of the attention
+kernels (`csrc/flash_attention.cu`, `csrc/decode_attention.cu`): full f32
+softmax attention with GQA by repeated K/V, as the reference's oracles.
 """
 from __future__ import annotations
 
@@ -121,3 +125,58 @@ def fused_score_select_ref(
         k=k, alpha=alpha, beta=beta, gamma=gamma, temp=temp,
         tool_rtt=tool_rtt, delta=delta, tool_aff=tool_aff, eps=eps,
     )
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+ATTN_NEG = -1e30   # the attention mask value (kernels and oracles agree)
+
+
+def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """[B, Hkv, S, D] -> [B, Hkv*n_rep, S, D] (GQA expansion)."""
+    if n_rep == 1:
+        return k
+    B, H, S, D = k.shape
+    return k[:, :, None].expand(B, H, n_rep, S, D).reshape(B, H * n_rep, S, D)
+
+
+def mha_ref(
+    q: torch.Tensor,  # [B, Hq, S, D]
+    k: torch.Tensor,  # [B, Hkv, Sk, D]
+    v: torch.Tensor,  # [B, Hkv, Sk, D]
+    *,
+    sm_scale: float,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Naive full-softmax GQA attention (f32 math), in q's dtype.  Under
+    ``causal`` column c of row r is visible when c <= r + (Sk - S)."""
+    B, Hq, S, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    k = repeat_kv(k, Hq // Hkv).to(torch.float32)
+    v = repeat_kv(v, Hq // Hkv).to(torch.float32)
+    s = torch.matmul(q.to(torch.float32), k.transpose(-1, -2)) * sm_scale
+    mask = torch.ones((S, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = torch.tril(mask, diagonal=Sk - S)
+    s = torch.where(mask, s, ATTN_NEG)
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p, v).to(q.dtype)
+
+
+def decode_ref(
+    q: torch.Tensor,        # [B, Hkv, G, D]
+    k: torch.Tensor,        # [B, Hkv, S, D]
+    v: torch.Tensor,        # [B, Hkv, S, D]
+    lengths: torch.Tensor,  # [B, 1] int
+    *,
+    sm_scale: float,
+) -> torch.Tensor:
+    """Naive single-token GQA attention over a variable-length cache."""
+    s = torch.matmul(q.to(torch.float32), k.to(torch.float32).transpose(-1, -2)) * sm_scale
+    S = k.shape[2]
+    mask = torch.arange(S, device=q.device)[None, :] < lengths.reshape(-1, 1)   # [B, S]
+    s = torch.where(mask[:, None, None], s, ATTN_NEG)
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p, v.to(torch.float32)).to(q.dtype)

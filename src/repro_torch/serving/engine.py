@@ -1,0 +1,250 @@
+"""Serving engine, twin of `repro.serving.engine`: prefill + decode with
+slot-based continuous batching.
+
+The engine owns a batched cache with ``n_slots`` sequences of ``cap``
+tokens.  Requests are prefilled one at a time ([1, S]), padded to ``cap``
+with zeros and written into a free slot whole, so a reused slot keeps
+nothing of its previous request; all active slots then decode one token per
+engine step, and finished requests free their slots.
+
+Differences from the reference, by design:
+  * the cache is updated in place (`insert_slot`, the decode step's K/V
+    write) instead of being returned anew;
+  * a prompt of ``cap`` tokens or more is refused at `submit` (the
+    reference would decode at a clamped position);
+  * the engine runs on ``device`` (None: the CUDA card) and refuses
+    parameters that lie elsewhere.
+
+As in the reference, every decode step runs at the *largest* active
+length: a shorter slot writes its new K/V at that position and attends
+over the zeros between its own length and it (`ROADMAP.md` queue 3).
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch import resolve_device
+from repro_torch.models.api import Model
+from repro_torch.obs import Observability
+
+
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(i, (str, type(None))) for i in x)
+
+
+def _map(fn, axes, *trees):
+    """fn(names, *leaves) over trees shaped like the ``axes`` tree."""
+    if _is_axes(axes):
+        return fn(axes, *trees)
+    if isinstance(axes, dict):
+        return {k: _map(fn, a, *(t[k] for t in trees)) for k, a in axes.items()}
+    return tuple(_map(fn, a, *(t[i] for t in trees)) for i, a in enumerate(axes))
+
+
+def pad_cache_to_capacity(cache, axes, cap: int):
+    """Pad every 'cache_seq' dim (prefill emits length-S caches) to ``cap``
+    with zeros; a leaf already at capacity comes back as it is."""
+
+    def one(names, leaf):
+        if "cache_seq" not in names:
+            return leaf
+        d = names.index("cache_seq")
+        pad = cap - leaf.shape[d]
+        if pad <= 0:
+            return leaf
+        return F.pad(leaf, [0, 0] * (leaf.ndim - d - 1) + [0, pad])
+
+    return _map(one, axes, cache)
+
+
+def insert_slot(batched_cache, axes, single_cache, slot: int):
+    """Write a single-sequence cache into slot ``slot`` of the batched cache,
+    in place; returns the batched cache."""
+
+    def one(names, big, small):
+        b = names.index("cache_batch" if "cache_batch" in names else "batch")
+        big.select(b, slot).copy_(small.select(b, 0))
+        return big
+
+    return _map(one, axes, batched_cache, single_cache)
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    tokens: np.ndarray             # prompt [S]
+    max_new_tokens: int = 16
+    extras: Optional[dict] = None  # frames / patches (audio / vlm): not ported
+    # filled by the engine:
+    generated: list = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class ServeEngine:
+    """Slot-based continuous-batching execution engine for one replica.
+
+    Parameters
+    ----------
+    model : Model
+        A `repro_torch.models.api.Model` (prefill / decode_step).
+    params : dict
+        Model parameters on ``device``, shared by all slots.
+    n_slots : int
+        Concurrent sequences in the batched cache.
+    cap : int
+        Cache capacity in tokens per slot.
+    obs : repro_torch.obs.Observability, optional
+        Shared registry and tracer: the engine counts admissions,
+        completions, steps and tokens and keeps active-slot and
+        queue-depth gauges under the reference's names; prefill and
+        decode spans are recorded when the tracer is on.
+    device : None, str or torch.device
+        Where the engine runs; None is the CUDA card and raises without one.
+    """
+
+    def __init__(self, model: Model, params, n_slots: int, cap: int,
+                 obs: Optional[Observability] = None, device=None):
+        self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        bad = {t.device for t in _leaves(params)} - {self.device}
+        if bad:
+            raise ValueError(f"ServeEngine: parameters on {sorted(map(str, bad))}, "
+                             f"engine on {self.device}")
+        self.model = model
+        self.params = params
+        self.n_slots = n_slots
+        self.cap = cap
+        self.cache = model.init_cache(n_slots, cap, device=self.device)
+        self.axes = model.cache_axes()
+        self.slot_req: list = [None] * n_slots
+        self.slot_len = np.zeros(n_slots, np.int32)
+        self.last_token = np.zeros((n_slots, 1), np.int32)
+        self.queue: collections.deque = collections.deque()
+        self.obs = obs if obs is not None else Observability()
+        reg = self.obs.registry
+        self._m_admitted = reg.counter("engine_admitted_total", "req")
+        self._m_completed = reg.counter("engine_completed_total", "req")
+        self._m_steps = reg.counter("engine_steps_total", "steps")
+        self._m_tokens = reg.counter("engine_tokens_total", "tokens")
+        self._m_active = reg.gauge("engine_active_slots", "slots")
+        self._m_queue = reg.gauge("engine_queue_depth", "req")
+
+    # -- request lifecycle --------------------------------------------------
+    @property
+    def pending(self) -> int:
+        """Requests not yet finished: queued plus in-slot."""
+        return len(self.queue) + sum(1 for r in self.slot_req if r is not None)
+
+    def submit(self, req: Request):
+        """Enqueue one request; the next `step` with a free slot admits it."""
+        if req.extras:
+            raise NotImplementedError("repro_torch: request extras (audio / vision) "
+                                      "are not ported yet")
+        if not 1 <= len(req.tokens) < self.cap:
+            raise ValueError(f"ServeEngine: prompt of {len(req.tokens)} tokens; "
+                             f"1 to {self.cap - 1} fit a slot of {self.cap}")
+        self.queue.append(req)
+        self._m_queue.set(len(self.queue))
+
+    def _next_tokens(self, logits: torch.Tensor, reqs: list) -> list:
+        """Greedy choice: the first maximum of each row of ``logits`` [n, V]
+        (row i belongs to ``reqs[i]``, None for a free slot)."""
+        return torch.argmax(logits, dim=-1).tolist()
+
+    def _admit(self):
+        for slot in range(self.n_slots):
+            if self.slot_req[slot] is None and self.queue:
+                req = self.queue.popleft()
+                tokens = torch.as_tensor(np.asarray(req.tokens, np.int64)[None, :],
+                                         device=self.device)
+                with self.obs.tracer.span(
+                    "prefill", cat="engine", args={"rid": req.rid}
+                ), torch.profiler.record_function("netmcp.prefill"):
+                    logits, cache1 = self.model.prefill(self.params, {"tokens": tokens})
+                cache1 = pad_cache_to_capacity(cache1, self.axes, self.cap)
+                insert_slot(self.cache, self.axes, cache1, slot)
+                tok = self._next_tokens(logits[:, -1], [req])[0]
+                req.generated.append(tok)
+                self.slot_req[slot] = req
+                self.slot_len[slot] = len(req.tokens)
+                self.last_token[slot, 0] = tok
+                self._m_admitted.inc()
+                self._m_tokens.inc()
+        self._m_queue.set(len(self.queue))
+        self._m_active.set(sum(1 for r in self.slot_req if r is not None))
+
+    def _evict(self):
+        for slot, req in enumerate(self.slot_req):
+            if req is None:
+                continue
+            if len(req.generated) >= req.max_new_tokens or self.slot_len[slot] + 1 >= self.cap:
+                req.done = True
+                self.slot_req[slot] = None
+                self._m_completed.inc()
+        self._m_active.set(sum(1 for r in self.slot_req if r is not None))
+
+    def step(self):
+        """One continuous-batching engine step."""
+        self._admit()
+        active = [s for s, r in enumerate(self.slot_req) if r is not None]
+        if not active:
+            return False
+        # cache_len is uniform per decode call, as in the reference: every
+        # slot decodes at the largest active length
+        cache_len = int(self.slot_len[active].max())
+        with self.obs.tracer.span(
+            "decode_step", cat="engine", args={"active": len(active)}
+        ), torch.profiler.record_function("netmcp.decode_step"):
+            logits, self.cache = self.model.decode_step(
+                self.params, self.cache, torch.as_tensor(self.last_token, device=self.device),
+                cache_len,
+            )
+        toks = self._next_tokens(logits[:, -1], self.slot_req)
+        for slot in active:
+            req = self.slot_req[slot]
+            req.generated.append(int(toks[slot]))
+            self.slot_len[slot] += 1
+            self.last_token[slot, 0] = int(toks[slot])
+        self._m_steps.inc()
+        self._m_tokens.inc(len(active))
+        self._evict()
+        return True
+
+    def run(self, max_steps: int = 10_000):
+        """Step until every submitted request is done (or ``max_steps``);
+        returns the number of engine steps taken."""
+        steps = 0
+        while self.pending and steps < max_steps:
+            if not self.step() and not self.queue:
+                break
+            steps += 1
+        return steps
+
+    def drain(self, max_steps: int = 10_000) -> int:
+        """Finish all in-flight and queued requests, then check that the
+        engine is empty.  Returns steps taken."""
+        steps = self.run(max_steps)
+        if self.pending:
+            raise RuntimeError(
+                f"drain incomplete: {self.pending} requests still "
+                f"in flight after {steps} steps"
+            )
+        return steps
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree

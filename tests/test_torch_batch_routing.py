@@ -301,7 +301,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
         "for m in ('core.batch_routing', 'core.mesh_routing', 'core.adaptive',\n"
-        "          'traffic.fleet', 'kernels.select_fuse'):\n"
+        "          'traffic.fleet', 'kernels.select_fuse', 'kernels.flash_attention',\n"
+        "          'kernels.decode_attention', 'models.api', 'models.lm', 'nn.core',\n"
+        "          'configs.internlm2_1_8b', 'obs.trace', 'serving.engine'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,

@@ -12,7 +12,15 @@ a multiply by its reciprocal while the kernel divides, so C and S agree
 within rtol 2e-6 / atol 2e-7 there; QoS sums in another order and agrees
 within the same tolerance.  Decisions are always exact.  A CUDA tensor
 must never reach a plain version.
+
+The attention kernels (flash prefill, flash decode) do their math in f32
+like their plain versions (`mha_ref`, `decode_ref`) but sum in another
+order: they agree within rtol = atol = 2e-5 in float32 and 2e-2 in
+bfloat16 (outputs rounded to bf16), the tolerances of `tests/test_kernels.py`.
 """
+import dataclasses
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +29,8 @@ from repro_torch.core import bm25, dataset, qos
 from repro_torch.core.batch_routing import make_engine
 from repro_torch.core.mesh_routing import make_sharded_engine
 from repro_torch.core.routing import RoutingConfig, ToolIndex
+from repro_torch.models.api import get_model
+from repro_torch.models.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 from repro_torch.traffic import mega_fleet_index
@@ -123,8 +133,20 @@ def test_ops_never_take_the_plain_path_on_cuda(cuda, monkeypatch):
     sel = torch.rand((20, 700), device=cuda)
     ops.fused_select(sel, sel, torch.zeros(700, device=cuda), k=5, alpha=1.0, beta=0.0)
     torch.cuda.synchronize()
+    q = torch.randn((1, 4, 70, 64), device=cuda)
+    kv = torch.randn((1, 2, 70, 64), device=cuda)
+    monkeypatch.setattr(kref, "mha_ref", plain_called)
+    monkeypatch.setattr(kref, "decode_ref", plain_called)
+    ops.flash_attention(q, kv, kv)
+    ops.decode_attention(q[:, :, 0].contiguous(), kv, kv, torch.full((1,), 70, device=cuda))
+    torch.cuda.synchronize()
     assert ops.launch_counts() == {"bm25_scores": 1, "qos_scores": 1, "fused_score_select": 1,
-                                   "fused_select": 1}
+                                   "fused_select": 1, "flash_attention": 1,
+                                   "decode_attention": 1}
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention(q[..., :40], kv[..., :40], kv[..., :40])
+    with pytest.raises(ValueError, match="dtype"):
+        ops.flash_attention(q.bfloat16(), kv, kv)
     with pytest.raises(ValueError, match="k="):
         ops.fused_select(sel, sel, torch.zeros(700, device=cuda), k=129, alpha=1.0, beta=0.0)
     with pytest.raises(ValueError, match="mixed devices"):
@@ -222,3 +244,97 @@ def test_sharded_kernel_path_equals_plain_path(cuda):
         np.testing.assert_array_equal(a.server_idx, b.server_idx, err_msg=algo)
         for x, y in ((a.expertise, b.expertise), (a.network, b.network), (a.fused, b.fused)):
             np.testing.assert_allclose(x, y, rtol=RTOL, atol=ATOL, err_msg=algo)
+
+
+ATTN_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+def _randn(g, shape, dtype, dev):
+    return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("G,S", [(1, 1), (2, 130), (4, 2048), (8, 130)])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(cuda, dtype, D, G, S, causal):
+    g = torch.Generator(device=cuda).manual_seed(S + D + G)
+    B, Hkv = (1, 2) if S > 1000 else (2, 2)
+    q = _randn(g, (B, Hkv * G, S, D), dtype, cuda)
+    k = _randn(g, (B, Hkv, S, D), dtype, cuda)
+    v = _randn(g, (B, Hkv, S, D), dtype, cuda)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = kref.mha_ref(q, k, v, sm_scale=1 / math.sqrt(D), causal=causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_model_layout_and_offsets(cuda, dtype):
+    """Transposed views of [B, S, H, D] go in without copies and come out in
+    q's layout; Sq != Sk takes the tril offset of `mha_ref`."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = _randn(g, (2, 300, 8, 64), dtype, cuda)
+    k = _randn(g, (2, 300, 2, 64), dtype, cuda)
+    v = _randn(g, (2, 300, 2, 64), dtype, cuda)
+    got = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    assert got.stride() == q.transpose(1, 2).stride()
+    want = kref.mha_ref(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+                        v.transpose(1, 2).contiguous(), sm_scale=0.125)
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+    qs = q.transpose(1, 2)[:, :, 100:]                         # Sq 200 against Sk 300
+    got = ops.flash_attention(qs, k.transpose(1, 2), v.transpose(1, 2))
+    want = kref.mha_ref(qs.contiguous(), k.transpose(1, 2).contiguous(),
+                        v.transpose(1, 2).contiguous(), sm_scale=0.125)
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("S", [130, 2048])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_matches_plain(cuda, dtype, D, G, S):
+    """Per-sequence lengths from 1 to S_cap; the cache in the op layout
+    [B, Hkv, S, D] and in the model's [B, S, Hkv, D] (strided view)."""
+    g = torch.Generator(device=cuda).manual_seed(S + D + G)
+    B, Hkv = 5, 2
+    q = _randn(g, (B, Hkv * G, D), dtype, cuda)
+    k = _randn(g, (B, Hkv, S, D), dtype, cuda)
+    v = _randn(g, (B, Hkv, S, D), dtype, cuda)
+    lengths = torch.tensor([1, S, 63, 64, 65], dtype=torch.int32, device=cuda).clamp(max=S)
+    want = kref.decode_ref(q.reshape(B, Hkv, G, D), k, v, lengths.reshape(B, 1),
+                           sm_scale=1 / math.sqrt(D)).reshape(B, Hkv * G, D)
+    got = ops.decode_attention(q, k, v, lengths)
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+    kc, vc = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    got_c = ops.decode_attention(q, kc.transpose(1, 2), vc.transpose(1, 2), lengths)
+    assert torch.equal(got_c, got)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_model_kernel_path_matches_plain_path(cuda, dtype):
+    """A narrow 3-layer GQA decoder on the card: prefill and decode under
+    attn_impl="pallas" (the kernels, one launch per layer per call) against
+    the plain "naive" path on the same weights."""
+    cfg = ModelConfig(name="tiny", family="dense", n_layers=3, d_model=256, n_heads=4,
+                      n_kv_heads=2, d_ff=512, vocab_size=1000, dtype=dtype, attn_impl="pallas")
+    plain = dataclasses.replace(cfg, attn_impl="naive")
+    params = get_model(cfg).init_params(seed=1, device=cuda)
+    toks = torch.randint(0, 1000, (2, 150), generator=torch.Generator(device=cuda).manual_seed(2),
+                         device=cuda)
+    tol = ATTN_TOL[getattr(torch, dtype)]
+    ops.reset_launches()
+    lk, ck = get_model(cfg).prefill(params, {"tokens": toks})
+    lp, cp = get_model(plain).prefill(params, {"tokens": toks})
+    assert ops.launch_counts()["flash_attention"] == 3
+    torch.testing.assert_close(lk, lp, rtol=tol["rtol"], atol=tol["atol"] * float(lp.abs().max()))
+    from repro_torch.serving.engine import pad_cache_to_capacity
+    ck = pad_cache_to_capacity(ck, get_model(cfg).cache_axes(), 200)
+    cp = pad_cache_to_capacity(cp, get_model(cfg).cache_axes(), 200)
+    nt = toks[:, -1:]
+    for step in range(3):
+        lk, ck = get_model(cfg).decode_step(params, ck, nt, 150 + step)
+        lp, cp = get_model(plain).decode_step(params, cp, nt, 150 + step)
+        torch.testing.assert_close(lk, lp, rtol=tol["rtol"],
+                                   atol=tol["atol"] * float(lp.abs().max()))
+    assert ops.launch_counts()["decode_attention"] == 9

@@ -8,6 +8,11 @@ and add the live-weight, affinity and per-query-row variants; the
 fused-selection cases mirror `tests/test_kernel_edges.py` (off-tile shapes,
 one server, fewer tools than k, all invalid, all dead, mixed).  Decisions
 must match exactly; C, N and S within rtol 2e-6 / atol 2e-7.
+The attention cases hold the plain versions of the flash and flash-decode
+kernels (`ops.flash_attention`, `ops.decode_attention` on CPU tensors) to
+the reference's entry points (Pallas, interpret mode) and oracles
+(`mha_ref`, `decode_ref`) on a subset of `tests/test_kernels.py`'s shapes,
+within its tolerances (rtol = atol = 2e-5 in float32, 2e-2 in bfloat16).
 The CUDA kernels themselves are tested on the card by
 `tests/test_torch_cuda.py`.
 """
@@ -25,6 +30,7 @@ from repro.kernels import ref as jref
 from repro_torch.core import qos
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import bm25_score, qos_score, score_fuse, select_fuse
+from repro_torch.kernels import decode_attention, flash_attention
 from repro_torch.kernels import ref as kref
 
 RTOL, ATOL = 2e-6, 2e-7
@@ -223,7 +229,8 @@ def test_qos_scores_dispatches_to_plain_on_cpu():
     np.testing.assert_allclose(got, np.asarray(jops.qos_scores(lat, interpret=True)),
                                rtol=RTOL, atol=ATOL)
     assert ops.launch_counts() == {"bm25_scores": 0, "qos_scores": 0, "fused_score_select": 0,
-                                   "fused_select": 0}
+                                   "fused_select": 0, "flash_attention": 0,
+                                   "decode_attention": 0}
 
 
 def test_kernel_launchers_refuse_cpu_tensors_without_building():
@@ -243,6 +250,12 @@ def test_kernel_launchers_refuse_cpu_tensors_without_building():
     with pytest.raises(ValueError, match="CUDA"):
         select_fuse.fused_select_cuda(x, x, {"tool_qos": torch.zeros(3)}, k=1, alpha=1.0,
                                       beta=0.0, gamma=0.0, delta=0.0, eps=0.0, temp=1.0)
+    x4 = torch.zeros((1, 2, 5, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention.flash_attention_cuda(x4, x4, x4, sm_scale=0.125, causal=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attention.decode_attention_cuda(x4[:, :, :1], x4, x4,
+                                               torch.ones(1, dtype=torch.int32), sm_scale=0.125)
     assert _build._LIBS == {}
 
 
@@ -255,7 +268,7 @@ def test_importing_builds_nothing():
         "    raise AssertionError('a process was started')\n"
         "subprocess.Popen = refuse\n"
         "from repro_torch.kernels import _build, ops, bm25_score, qos_score, score_fuse, ref\n"
-        "from repro_torch.kernels import select_fuse\n"
+        "from repro_torch.kernels import select_fuse, flash_attention, decode_attention\n"
         "from repro_torch.core import dataset\n"
         "from repro_torch.core.batch_routing import make_engine\n"
         "from repro_torch.core.mesh_routing import make_sharded_engine\n"
@@ -266,9 +279,19 @@ def test_importing_builds_nothing():
         "m = make_sharded_engine('sonar_adapt', index=mega_fleet_index(30), n_shards=2,\n"
         "                        device='cpu', use_kernels=True)\n"
         "d = m.route_texts(['search the web'])\n"
+        "import dataclasses\n"
+        "from repro_torch import configs\n"
+        "from repro_torch.models.api import get_model\n"
+        "from repro_torch.serving.engine import Request, ServeEngine\n"
+        "cfg = dataclasses.replace(configs.get_reduced('internlm2-1.8b'), attn_impl='pallas')\n"
+        "mdl = get_model(cfg)\n"
+        "eng = ServeEngine(mdl, mdl.init_params(0, device='cpu'), 1, 16, device='cpu')\n"
+        "eng.submit(Request(0, [1, 2, 3], max_new_tokens=3))\n"
+        "eng.drain()\n"
         "assert _build._LIBS == {}\n"
         "assert ops.launch_counts() == {'bm25_scores': 0, 'qos_scores': 0,"
-        " 'fused_score_select': 0, 'fused_select': 0}\n"
+        " 'fused_score_select': 0, 'fused_select': 0, 'flash_attention': 0,"
+        " 'decode_attention': 0}\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
@@ -370,3 +393,69 @@ def test_fused_select_rerank_rtt_affinity_live_weights(per_query):
                            alpha=live[0], beta=live[1], gamma=live[2], delta=live[3], **tkw)
     for a, b in zip(got, want):
         assert np.array_equal(a.numpy(), b)
+
+
+ATTN_TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+def _attn_operands(shapes, dtype, seed):
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    return ([jnp.asarray(a, getattr(jnp, dtype)) for a in arrays],
+            [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrays])
+
+
+def _f32(x):
+    return np.asarray(jnp.asarray(x, jnp.float32)) if not isinstance(x, torch.Tensor) \
+        else x.to(torch.float32).numpy()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "B,Hq,Hkv,S,D,causal",
+    [
+        (2, 8, 2, 256, 64, True),     # GQA 4:1
+        (1, 4, 1, 256, 64, False),    # MQA bidirectional
+        (2, 6, 6, 130, 32, True),     # ragged S, no padding in the port
+    ],
+)
+def test_flash_attention_plain_matches_reference(B, Hq, Hkv, S, D, causal, dtype):
+    (jq, jk, jv), (q, k, v) = _attn_operands(
+        [(B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D)], dtype, S + Hq)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    for want in (jops.flash_attention(jq, jk, jv, causal=causal),
+                 jref.mha_ref(jq, jk, jv, sm_scale=1 / np.sqrt(D), causal=causal)):
+        np.testing.assert_allclose(_f32(got), _f32(want), **ATTN_TOL[dtype])
+    # the model's [B, S, H, D] layout, as transposed views
+    got_t = ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                                k.transpose(1, 2).contiguous().transpose(1, 2),
+                                v.transpose(1, 2).contiguous().transpose(1, 2), causal=causal)
+    np.testing.assert_allclose(_f32(got_t), _f32(got), **ATTN_TOL[dtype])
+    assert ops.launch_counts()["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", [(4, 8, 2, 256, 64), (3, 7, 7, 200, 32)])
+def test_decode_attention_plain_matches_reference(B, Hq, Hkv, S, D, dtype):
+    """Random per-row lengths, 1 and S included."""
+    (jq, jk, jv), (q, k, v) = _attn_operands(
+        [(B, Hq, D), (B, Hkv, S, D), (B, Hkv, S, D)], dtype, S + Hq)
+    rng = np.random.default_rng(S)
+    lengths = rng.integers(1, S + 1, B).astype(np.int32)
+    lengths[0], lengths[-1] = 1, S
+    got = ops.decode_attention(q, k, v, torch.from_numpy(lengths))
+    assert got.dtype == q.dtype and got.shape == q.shape
+    G = Hq // Hkv
+    for want in (
+        jops.decode_attention(jq, jk, jv, jnp.asarray(lengths), bk=128),
+        jref.decode_ref(jq.reshape(B, Hkv, G, D), jk, jv, jnp.asarray(lengths).reshape(B, 1),
+                        sm_scale=1 / np.sqrt(D)).reshape(B, Hq, D),
+    ):
+        np.testing.assert_allclose(_f32(got), _f32(want), **ATTN_TOL[dtype])
+    # the model's cache layout [B, S, Hkv, D] through a transposed view
+    got_c = ops.decode_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2),
+                                 v.transpose(1, 2).contiguous().transpose(1, 2),
+                                 torch.from_numpy(lengths))
+    np.testing.assert_allclose(_f32(got_c), _f32(got), **ATTN_TOL[dtype])
+    assert ops.launch_counts()["decode_attention"] == 0
