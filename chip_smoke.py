@@ -50,8 +50,11 @@ in every prefill, the flash-decode kernel in every decode step.
    plain version, one library call where there is one, and its bound; the
    end-to-end ``route_texts`` time per batch on both paths; a profile of one
    route of each path; the attention kernels at the serving shapes beside
-   their plain versions and ``scaled_dot_product_attention``; a profile of
-   one 1536-token prefill and one 8-slot decode step of internlm2-1.8b.
+   their plain versions and ``scaled_dot_product_attention``, each also as
+   device time per call from a profile (the kernel alone, without the
+   wrapper's host work); the count of HGMMA (wgmma) instructions in the
+   flash library's SASS, which must not be 0; a profile of one 1536-token
+   prefill and one 8-slot decode step of internlm2-1.8b.
 
 The line before the last is the ``kernels`` JSON object; the last is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
@@ -368,7 +371,7 @@ def main(rehearse: bool) -> None:
             log(f"phase 2: kernels built and loaded in {time.perf_counter() - t0:.2f} s")
             for name, text in _build.build_logs().items():
                 for line in text.splitlines():
-                    if "Used" in line or "spill" in line:
+                    if "Used" in line or "spill" in line or "Performance Loss" in line:
                         log(f"phase 2: ptxas {name}: {line.strip()}")
         max_err["bm25_scores"] = close(k_s, bm25_plain(w_s, q_s), "bm25_scores [n_q, V_s]x[n_s, V_s]")
         sync()
@@ -792,6 +795,37 @@ def main(rehearse: bool) -> None:
                 out.append((time.perf_counter() - t) * 1e3)
         return statistics.median(out)
 
+    def device_us(fn, n):
+        """Wall ms of ``n`` calls of ``fn`` (after a warm-up) under the
+        profiler, and the device time per call by kernel name (us);
+        annotations are left out.  The tracer now and then returns no
+        device activity at all (about one profile in five on the H100);
+        such a profile is taken again, up to three times, and an empty
+        result means "not measured", never zero."""
+        fn()
+        sync()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        for _ in range(3):
+            with torch.profiler.profile(activities=acts) as prof:
+                t = time.perf_counter()
+                for _ in range(n):
+                    fn()
+                sync()
+                wall = (time.perf_counter() - t) * 1e3 / n
+            per = {}
+            for ev in prof.key_averages():
+                if ev.device_type != torch.autograd.DeviceType.CUDA \
+                        or getattr(ev, "is_user_annotation", False) \
+                        or ev.key.startswith("netmcp."):
+                    continue      # host-side ops, and labels whose device range spans kernels
+                d = getattr(ev, "self_device_time_total", 0) \
+                    or getattr(ev, "self_cuda_time_total", 0)
+                if d:
+                    per[ev.key] = d / n
+            if per:
+                break
+        return wall, per
+
     def bound(n_bytes, n_ops, ops_per_s=FP32_OPS_PER_S):
         tb, to = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / ops_per_s * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
@@ -885,6 +919,40 @@ def main(rehearse: bool) -> None:
             bound=bound(2 * (2 * kd.numel() + 2 * qd.numel()), 4 * 8 * 16 * S_att * 128,
                         BF16_OPS_PER_S),
             shape=f"8 slots x 16 heads against [8, {S_att}, 8, 128] caches, bf16"))
+        # the attention kernels' own device time per call (the split and
+        # merge kernels of decode together), apart from the wrapper's host
+        # work that the CUDA-event window includes when the host is the
+        # slower side; the same for the SDPA call beside each
+        if dev.type == "cuda":
+            calls = {     # name -> (the kernel's call, the SDPA call beside it)
+                "flash_attention": (lambda: ops.flash_attention(qf, kf, vf),
+                                    lambda: sdpa(qf, kf, vf, is_causal=True, enable_gqa=True)),
+                "decode_attention": (lambda: ops.decode_attention(qd, kt, vt, full),
+                                     lambda: sdpa(qd[:, :, None], kt, vt, enable_gqa=True)),
+            }
+
+            def per_call(d):
+                return f"{sum(d.values()) / 1e3:.4f} ms" if d else "not measured"
+
+            for r in rows:
+                if r["name"] not in calls:
+                    continue
+                _, per = device_us(calls[r["name"]][0], 20)
+                _, per_lib = device_us(calls[r["name"]][1], 20)
+                log(f"phase 4: {r['name']} {r['shape']}: device time per call {per_call(per)} "
+                    "(profile of 20 calls: " + "; ".join(f"{k[:40]} {v:.1f} us"
+                                                          for k, v in per.items())
+                    + f") against the CUDA-event window {r['ms']:.4f} ms; SDPA device time per "
+                    f"call {per_call(per_lib)} against its window {r['library_ms']:.4f} ms")
+            lib = _build.build_dir() / "libflash_attention.so"
+            sass = subprocess.run([str(Path(_build.nvcc()).parent / "cuobjdump"), "-sass",
+                                   str(lib)], capture_output=True, text=True, check=True,
+                                  timeout=300).stdout
+            hgmma = sum("HGMMA" in line for line in sass.splitlines())
+            log(f"phase 4: {lib.name}: {hgmma} HGMMA instructions in its SASS (cuobjdump -sass)")
+            if hgmma == 0:
+                fail("the flash-attention library has no HGMMA instruction: the bf16 body "
+                     "does not run on the tensor cores")
     per_route = {n: launches[n] / max(routes[n], 1) for n in routes}
     per_route["fused_select"] = mlaunches["fused_select"] / max(mroutes["fused_select"], 1)
     per_route["flash_attention"] = slaunches["flash_attention"] / max(sv["admitted"], 1)
@@ -931,24 +999,8 @@ def main(rehearse: bool) -> None:
 
     def profile(what, fn):
         """Wall ms, device busy ms and the top device entries of one call
-        (mean of 3, after a warm-up); annotations are left out."""
-        fn()
-        sync()
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t = time.perf_counter()
-            for _ in range(3):
-                fn()
-            sync()
-            wall = (time.perf_counter() - t) * 1e3 / 3
-        dev_us = {}
-        for ev in prof.key_averages():
-            if ev.device_type != torch.autograd.DeviceType.CUDA \
-                    or getattr(ev, "is_user_annotation", False) or ev.key.startswith("netmcp."):
-                continue      # host-side ops, and labels whose device range spans kernels
-            d = getattr(ev, "self_device_time_total", 0) or getattr(ev, "self_cuda_time_total", 0)
-            if d:
-                dev_us[ev.key] = d / 3
+        (mean of 3, after a warm-up)."""
+        wall, dev_us = device_us(fn, 3)
         busy = sum(dev_us.values()) / 1e3
         top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
         log(f"phase 4: profile of {what}: wall {wall:.3f} ms, device busy {busy:.3f} ms "

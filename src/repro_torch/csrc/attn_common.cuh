@@ -1,7 +1,9 @@
 // Pieces shared by the two attention kernels (flash_attention.cu,
-// decode_attention.cu): element strides, the mask value, conversions and
-// the tile loader that stages rows of a strided [rows, D] slice in shared
-// memory as f32.
+// decode_attention.cu): element strides, the mask value, conversions,
+// shared-memory addresses, the asynchronous 16-byte copy (cp.async) that
+// fills the decode kernel's ring, and the tile loader of the f32 flash
+// body, which stages rows of a strided [rows, D] slice in shared memory as
+// f32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -24,6 +26,26 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 __device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared without passing through registers; when
+// `valid` is false nothing is read and the 16 bytes are zero-filled
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // rows [r0, r0 + ROWS) of a slice whose row r starts at base + r * row_stride

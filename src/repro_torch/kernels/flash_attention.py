@@ -1,10 +1,11 @@
 """Flash attention on the card: launcher of ``csrc/flash_attention.cu``.
 
-Causal/GQA online-softmax attention with f32 math over bf16 or f32
-operands, each addressed through its own (batch, head, sequence) strides
-with a contiguous last dim, so both the op layout [B, H, S, D] and
-transposed views of the model's [B, S, H, D] activations go in without a
-copy.  Replaces the Pallas kernel
+Causal/GQA online-softmax attention with the softmax state and P in f32,
+over bf16 operands on the tensor cores (wgmma, P carried as two bf16
+terms) or f32 operands on the CUDA cores, each addressed through its own
+(batch, head, sequence) strides with a contiguous last dim, so both the op
+layout [B, H, S, D] and transposed views of the model's [B, S, H, D]
+activations go in without a copy.  Replaces the Pallas kernel
 `repro.kernels.flash_attention._flash_kernel`; the plain version is
 `repro_torch.kernels.ref.mha_ref`.
 """
@@ -18,6 +19,7 @@ from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32, 64, 128)   # the kernel's compiled head widths
 _FN = None
+_STRIDES = ctypes.c_longlong * 12
 
 
 def _fn():
@@ -72,11 +74,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)           # keeps q's layout (dense, non-overlapping)
     if out.numel() == 0 or Sk == 0:
         return out.zero_()
-    strides = (ctypes.c_longlong * 12)(*(
-        s for t in (q, k, v, out) for s in (t.stride(0), t.stride(1), t.stride(2))))
+    (a0, a1, a2, _), (b0, b1, b2, _), (c0, c1, c2, _), (d0, d1, d2, _) = (
+        q.stride(), k.stride(), v.stride(), out.stride())
+    strides = _STRIDES(a0, a1, a2, b0, b1, b2, c0, c1, c2, d0, d1, d2)
     err = _fn()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.bfloat16), D, ctypes.cast(strides, ctypes.c_void_p),
+        int(q.dtype == torch.bfloat16), D, strides,
         B, Hq, Hkv, Sq, Sk, float(sm_scale), int(bool(causal)), _build.stream_ptr(q.device),
     )
     _build.check(err, "flash_attention kernel")

@@ -245,6 +245,7 @@ def decode_attention(
     if not _on_cuda(q, k, v, lengths):
         out = kref.decode_ref(qg, k, v, lengths.reshape(B, 1), sm_scale=sm_scale)
     else:
-        out = _dec.decode_attention_cuda(
-            qg, k, v, lengths.to(torch.int32).contiguous(), sm_scale=sm_scale)
+        if lengths.dtype != torch.int32 or not lengths.is_contiguous():
+            lengths = lengths.to(torch.int32).contiguous()
+        out = _dec.decode_attention_cuda(qg, k, v, lengths, sm_scale=sm_scale)
     return out.reshape(B, Hq, D)

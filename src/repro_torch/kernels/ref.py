@@ -14,6 +14,10 @@ lower tool id as ``lax.top_k`` does.
 `mha_ref` and `decode_ref` are the plain versions of the attention
 kernels (`csrc/flash_attention.cu`, `csrc/decode_attention.cu`): full f32
 softmax attention with GQA by repeated K/V, as the reference's oracles.
+`decode_split_ref` is the split-KV algebra of the decode kernel (partial
+softmax states per split, merged in split order), and `bf16_hi_lo` the
+split of f32 probabilities into two bf16 terms that the bf16 flash kernel
+feeds its tensor-core PV product.
 """
 from __future__ import annotations
 
@@ -180,3 +184,56 @@ def decode_ref(
     s = torch.where(mask[:, None, None], s, ATTN_NEG)
     p = torch.softmax(s, dim=-1)
     return torch.matmul(p, v.to(torch.float32)).to(q.dtype)
+
+
+def decode_split_ref(
+    q: torch.Tensor,        # [B, Hkv, G, D]
+    k: torch.Tensor,        # [B, Hkv, S, D]
+    v: torch.Tensor,        # [B, Hkv, S, D]
+    lengths: torch.Tensor,  # [B] or [B, 1] int
+    *,
+    sm_scale: float,
+    n_split: int,
+) -> torch.Tensor:
+    """Single-token GQA attention computed as the split-KV decode kernel
+    does: the cache rows [0, S) cut into ``n_split`` even splits
+    [s S / n, (s + 1) S / n); per split the partial state (m, l, acc) over
+    its rows below the length (an empty split: m = -1e30, l = 0, acc = 0);
+    then the splits merged in order with weights exp(m_s - max m) and the
+    sum divided by max(l, 1e-30).  A sequence of length 0 gives 0, as the
+    kernels and the reference's Pallas kernel do (`decode_ref`, a softmax
+    over an all-masked row, gives the mean of V there)."""
+    B, _, _, D = q.shape
+    S = k.shape[2]
+    if not 1 <= n_split <= S:
+        raise ValueError(f"decode_split_ref: n_split {n_split} outside [1, {S}]")
+    qf, kf, vf = q.to(torch.float32), k.to(torch.float32), v.to(torch.float32)
+    lengths = lengths.reshape(B, 1)
+    m_all, l_all, acc_all = [], [], []
+    for s in range(n_split):
+        lo, hi = s * S // n_split, (s + 1) * S // n_split
+        rows = torch.arange(lo, hi, device=q.device)
+        valid = (rows[None, :] < lengths)[:, None, None, :]                  # [B, 1, 1, rows]
+        sc = torch.matmul(qf, kf[:, :, lo:hi].transpose(-1, -2)) * sm_scale  # [B, Hkv, G, rows]
+        sc = torch.where(valid, sc, ATTN_NEG)
+        m = sc.amax(dim=-1, keepdim=True)
+        p = torch.where(valid, torch.exp(sc - m), 0.0)
+        m_all.append(m)
+        l_all.append(p.sum(dim=-1, keepdim=True))
+        acc_all.append(torch.matmul(p, vf[:, :, lo:hi]))
+    m_max = torch.stack(m_all).amax(dim=0)
+    num = torch.zeros_like(acc_all[0])
+    den = torch.zeros_like(l_all[0])
+    for m, l, acc in zip(m_all, l_all, acc_all):      # in split order
+        w = torch.exp(m - m_max)
+        num = num + w * acc
+        den = den + w * l
+    return (num / torch.clamp_min(den, 1e-30)).to(q.dtype)
+
+
+def bf16_hi_lo(p: torch.Tensor):
+    """f32 ``p`` -> (hi, lo) in bf16 with hi = bf16(p), lo = bf16(p - hi):
+    hi + lo carries p to about 2^-17 relative (the subtraction is exact)."""
+    p = p.to(torch.float32)
+    hi = p.to(torch.bfloat16)
+    return hi, (p - hi.to(torch.float32)).to(torch.bfloat16)

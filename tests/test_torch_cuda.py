@@ -13,10 +13,13 @@ within rtol 2e-6 / atol 2e-7 there; QoS sums in another order and agrees
 within the same tolerance.  Decisions are always exact.  A CUDA tensor
 must never reach a plain version.
 
-The attention kernels (flash prefill, flash decode) do their math in f32
-like their plain versions (`mha_ref`, `decode_ref`) but sum in another
-order: they agree within rtol = atol = 2e-5 in float32 and 2e-2 in
-bfloat16 (outputs rounded to bf16), the tolerances of `tests/test_kernels.py`.
+The attention kernels (flash prefill, flash decode) keep the softmax state
+and P in f32 like their plain versions (`mha_ref`, `decode_ref`) but sum in
+another order (the bf16 flash body on the tensor cores, with P carried as
+two bf16 terms): they agree within rtol = atol = 2e-5 in float32 and 2e-2
+in bfloat16 (outputs rounded to bf16), the tolerances of
+`tests/test_kernels.py`.  Both merge their partial sums in a fixed order,
+so two calls give the same bits.
 """
 import dataclasses
 import math
@@ -32,6 +35,8 @@ from repro_torch.core.routing import RoutingConfig, ToolIndex
 from repro_torch.models.api import get_model
 from repro_torch.models.config import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.decode_attention import decode_splits
+from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.kernels import ref as kref
 from repro_torch.traffic import mega_fleet_index
 
@@ -338,3 +343,66 @@ def test_model_kernel_path_matches_plain_path(cuda, dtype):
         torch.testing.assert_close(lk, lp, rtol=tol["rtol"],
                                    atol=tol["atol"] * float(lp.abs().max()))
     assert ops.launch_counts()["decode_attention"] == 9
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [1, 65, 130, 1000, 2048])
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_flash_bf16_tensor_core_body(cuda, D, S, causal):
+    """The bf16 body (wgmma, P split in two bf16 terms) at every head width,
+    at lengths off its 128-row q and 64-row kv tiles; two calls give the
+    same bits."""
+    g = torch.Generator(device=cuda).manual_seed(7 * S + D + causal)
+    q = _randn(g, (1, 4, S, D), torch.bfloat16, cuda)
+    k = _randn(g, (1, 2, S, D), torch.bfloat16, cuda)
+    v = _randn(g, (1, 2, S, D), torch.bfloat16, cuda)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = kref.mha_ref(q, k, v, sm_scale=1 / math.sqrt(D), causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[torch.bfloat16])
+    assert torch.equal(ops.flash_attention(q, k, v, causal=causal), got)
+
+
+@pytest.mark.parametrize("Sq,Sk", [(1, 130), (65, 1000), (200, 300), (130, 2048)])
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_flash_bf16_query_offset(cuda, D, Sq, Sk):
+    """Sq < Sk takes the tril offset of `mha_ref` (the last Sq rows of a
+    causal square), with the operands as transposed views of [B, S, H, D]."""
+    g = torch.Generator(device=cuda).manual_seed(Sq + Sk + D)
+    q = _randn(g, (2, Sq, 4, D), torch.bfloat16, cuda)
+    k = _randn(g, (2, Sk, 1, D), torch.bfloat16, cuda)
+    v = _randn(g, (2, Sk, 1, D), torch.bfloat16, cuda)
+    got = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    assert got.stride() == q.transpose(1, 2).stride()
+    want = kref.mha_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                        sm_scale=1 / math.sqrt(D))
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("S", [100, 1000, 2048])
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_split_edges(cuda, dtype, D, S):
+    """Lengths 0 and S, a split boundary and its neighbour, and sequences
+    whose splits are all empty but the first: against the plain split
+    algebra (`decode_split_ref`, which gives 0 for length 0) and
+    `decode_ref` (for lengths above 0); two calls give the same bits."""
+    B, Hkv, G = 6, 2, 2
+    n_split = decode_splits(B * Hkv, S)
+    assert (n_split > 1) == (S >= 128)
+    g = torch.Generator(device=cuda).manual_seed(S + D)
+    q = _randn(g, (B, Hkv * G, D), dtype, cuda)
+    k = _randn(g, (B, Hkv, S, D), dtype, cuda)
+    v = _randn(g, (B, Hkv, S, D), dtype, cuda)
+    edge = S // n_split
+    lengths = torch.tensor([0, S, edge, edge + 1, 1, max(edge - 5, 1)], dtype=torch.int32,
+                           device=cuda)
+    got = ops.decode_attention(q, k, v, lengths)
+    qg = q.reshape(B, Hkv, G, D)
+    want = kref.decode_split_ref(qg, k, v, lengths, sm_scale=1 / math.sqrt(D),
+                                 n_split=n_split).reshape(B, Hkv * G, D)
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+    assert torch.all(got[0] == 0)
+    want_ref = kref.decode_ref(qg, k, v, lengths.reshape(B, 1),
+                               sm_scale=1 / math.sqrt(D)).reshape(B, Hkv * G, D)
+    torch.testing.assert_close(got[1:].float(), want_ref[1:].float(), **ATTN_TOL[dtype])
+    assert torch.equal(ops.decode_attention(q, k, v, lengths), got)

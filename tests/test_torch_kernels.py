@@ -26,6 +26,7 @@ import torch
 
 from repro.core import quantize as jquantize
 from repro.kernels import ops as jops
+from repro.kernels.decode_attention import decode_attention_pallas
 from repro.kernels import ref as jref
 from repro_torch.core import qos
 from repro_torch.kernels import _build, ops
@@ -459,3 +460,76 @@ def test_decode_attention_plain_matches_reference(B, Hq, Hkv, S, D, dtype):
                                  torch.from_numpy(lengths))
     np.testing.assert_allclose(_f32(got_c), _f32(got), **ATTN_TOL[dtype])
     assert ops.launch_counts()["decode_attention"] == 0
+
+
+@pytest.mark.parametrize("bh,S", [(1, 1), (1, 16), (8, 127), (64, 100), (1, 128), (2, 130),
+                                  (64, 2048), (8, 2048), (256, 4096), (1, 32768), (1024, 65536)])
+def test_decode_splits(bh, S):
+    """One split for tiny caches, a full wave of blocks at the serving
+    shape, and never a split shorter than its minimum."""
+    n = decode_attention.decode_splits(bh, S)
+    assert 1 <= n <= decode_attention.MAX_SPLITS
+    assert n == 1 or S // n >= decode_attention.MIN_SPLIT_ROWS
+    if S < 2 * decode_attention.MIN_SPLIT_ROWS:
+        assert n == 1
+    if (bh, S) == (64, 2048):           # the serving step: B 8 x Hkv 8, cap 2048
+        assert n * bh >= 2 * decode_attention.SMS
+    assert decode_attention.decode_splits(bh, S) == n          # a pure function
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 4, 7])
+@pytest.mark.parametrize("B,Hkv,G,S,D,bk", [(12, 2, 2, 256, 32, 64), (12, 1, 4, 192, 16, 32)])
+def test_decode_split_ref_matches_references(B, Hkv, G, S, D, bk, n_split):
+    """The split-and-merge algebra of the split-KV decode kernel against the
+    reference's oracle and its Pallas kernel (interpret mode), in f32.
+    Lengths: 0, 1, a split boundary and its neighbours, S, and short
+    sequences whose later splits are all empty.  `decode_ref` gives the
+    mean of V for a length-0 row (a softmax over an all-masked row) while
+    the kernels give 0, so that row is held to the Pallas kernel only."""
+    rng = np.random.default_rng(S + n_split)
+    q = rng.standard_normal((B, Hkv, G, D)).astype(np.float32)
+    k = rng.standard_normal((B, Hkv, S, D)).astype(np.float32)
+    v = rng.standard_normal((B, Hkv, S, D)).astype(np.float32)
+    edge = S // n_split if n_split > 1 else S // 2
+    lengths = np.array([0, 1, edge - 1, edge, edge + 1, S, S - 1, 2, 5, 33, S // 3, S // 2 + 7],
+                       np.int32)[:B]
+    got = kref.decode_split_ref(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                                torch.from_numpy(lengths), sm_scale=1 / np.sqrt(D),
+                                n_split=n_split).numpy()
+    want_pallas = np.asarray(decode_attention_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lengths).reshape(B, 1),
+        sm_scale=1 / np.sqrt(D), bk=bk, interpret=True))
+    np.testing.assert_allclose(got, want_pallas, rtol=2e-6, atol=2e-6)
+    want_ref = np.asarray(jref.decode_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                          jnp.asarray(lengths).reshape(B, 1),
+                                          sm_scale=1 / np.sqrt(D)))
+    live = lengths > 0
+    np.testing.assert_allclose(got[live], want_ref[live], rtol=2e-6, atol=2e-6)
+    assert np.all(got[~live] == 0.0)
+
+
+@pytest.mark.parametrize("S,D", [(64, 64), (300, 128)])
+def test_bf16_hi_lo_split_keeps_p_in_f32(S, D):
+    """P_hi + P_lo carries a probability row to 2^-16 relative, so an output
+    computed through `mha_ref`'s arithmetic with the split P stays within
+    2e-5 of the f32-P output; P rounded once to bf16 does not.  This is why
+    the bf16 flash kernel pays for two PV products."""
+    rng = np.random.default_rng(S)
+    q = torch.from_numpy(rng.standard_normal((1, 2, S, D)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((1, 2, S, D)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((1, 2, S, D)).astype(np.float32))
+    v = v.to(torch.bfloat16).to(torch.float32)           # the kernel's V is bf16
+    s = torch.matmul(q, k.transpose(-1, -2)) / np.sqrt(D)
+    s = torch.where(torch.tril(torch.ones((S, S), dtype=torch.bool)), s, kref.ATTN_NEG)
+    p = torch.softmax(s, dim=-1)
+    hi, lo = kref.bf16_hi_lo(p)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    p2 = hi.to(torch.float32) + lo.to(torch.float32)
+    assert torch.all((p2 - p).abs() <= 2.0 ** -16 * p.abs())
+    want = torch.matmul(p, v)
+    split = torch.matmul(hi.to(torch.float32), v) + torch.matmul(lo.to(torch.float32), v)
+    once = torch.matmul(hi.to(torch.float32), v)
+    assert float((split - want).abs().max()) <= 2e-5
+    assert float((once - want).abs().max()) > 2e-5
+    torch.testing.assert_close(
+        split, kref.mha_ref(q, k, v, sm_scale=1 / np.sqrt(D)), rtol=2e-5, atol=2e-5)
