@@ -22,7 +22,11 @@ in every prefill, the flash-decode kernel in every decode step.
 1. set-up: TF32 off, the card's name and power limit, both fleets, the
    queries and seeded telemetry;
 2. each CUDA kernel (built from ``src/repro_torch/csrc`` on first use)
-   against its plain PyTorch version at its paths' shapes (``fused_select``
+   against its plain PyTorch version at its paths' shapes: ``bm25_scores``
+   and ``fused_score_select`` bit for bit (``torch.equal``) on the fleet,
+   a fully dense query batch and bf16 weights, the fused stage 2 also with
+   rerank and live weights, through the engine's server -> tools map and
+   through the one the wrapper builds when given none (``fused_select``
    at the mega tail's [256, 16], a dense-shard merge [256, 4 x 16] and the
    full tool axis [256, 20010]); the attention kernels at the serving
    shapes (flash prefill [1, 16, S, 128] against 8 kv heads in the model's
@@ -50,9 +54,11 @@ in every prefill, the flash-decode kernel in every decode step.
    plain version, one library call where there is one, and its bound; the
    end-to-end ``route_texts`` time per batch on both paths; a profile of one
    route of each path; the attention kernels at the serving shapes beside
-   their plain versions and ``scaled_dot_product_attention``, each also as
-   device time per call from a profile (the kernel alone, without the
-   wrapper's host work); the count of HGMMA (wgmma) instructions in the
+   their plain versions and ``scaled_dot_product_attention``; BM25 (with
+   the columns its queries use and their non-zero terms), the fused stage 2
+   and the attention kernels each also as device time per call from a
+   profile (the kernel alone, without the wrapper's host work), beside the
+   library call's where there is one; the count of HGMMA (wgmma) instructions in the
    flash library's SASS, which must not be 0; a profile of one 1536-token
    prefill and one 8-slot decode step of internlm2-1.8b.
 
@@ -358,29 +364,53 @@ def main(rehearse: bool) -> None:
     q_r = torch.as_tensor(
         make_engine("rerank_rag", servers, cfg, device=dev, index=index)
         .encode(batches[0]).q_rerank, device=dev)
-    w_s, w_t, ts = eng0._w_server, eng0._w_tool, eng0._tool_server
+    # the engine's static operands: server weights transposed [V_s, n_s]
+    # (w_s is its [n_s, V_s] view), tool weights, tool -> server, and the
+    # server -> tools map
+    w_st, w_t, ts, csr = eng0._w_server_t, eng0._w_tool, eng0._tool_server, eng0._tool_csr
+    w_s = w_st.t()
     lat_t = torch.as_tensor(lat, device=dev)
     flat = lat_perq.reshape(-1, T)
+
+    def equal(a, b, what):
+        """The redesigned routing kernels are held to their plain versions bit for bit."""
+        if a.shape != b.shape or not torch.equal(a, b):
+            fail(f"{what}: kernel and plain version differ (max abs "
+                 f"{float((a.float() - b.float()).abs().max()) if a.shape == b.shape else 'shape'})")
 
     max_err = {}
     ops.reset_launches()
     with torch.no_grad():
         t0 = time.perf_counter()
-        k_s = ops.bm25_scores(q_s, w_s)
+        k_s = ops.bm25_scores(q_s, w_st)
         if not rehearse:
             log(f"phase 2: kernels built and loaded in {time.perf_counter() - t0:.2f} s")
             for name, text in _build.build_logs().items():
                 for line in text.splitlines():
                     if "Used" in line or "spill" in line or "Performance Loss" in line:
                         log(f"phase 2: ptxas {name}: {line.strip()}")
-        max_err["bm25_scores"] = close(k_s, bm25_plain(w_s, q_s), "bm25_scores [n_q, V_s]x[n_s, V_s]")
+        # bm25: the fleet, a fully dense query batch, and bf16 weights, all
+        # in the engine's transposed layout; torch.equal against the plain
+        # ordered sum
+        q_dense = torch.randint(1, 4, q_s.shape, generator=gen, device=dev).float()
+        bm25_cases = {
+            "fleet": (k_s, bm25_plain(w_s, q_s)),
+            "fully dense queries": (ops.bm25_scores(q_dense, w_st), bm25_plain(w_s, q_dense)),
+            "bf16 weights": (ops.bm25_scores(q_s, w_st.bfloat16()),
+                             bm25_plain(w_s.bfloat16(), q_s)),
+        }
+        for name, (got, want) in bm25_cases.items():
+            equal(got, want, f"bm25_scores [{name}]")
         sync()
+        max_err["bm25_scores"] = 0.0
+        log(f"phase 2: bm25_scores [{q_s.shape[0]}, {q_s.shape[1]}] x [{w_s.shape[0]}, "
+            f"{w_s.shape[1]}] bit-equal to the plain version: {', '.join(bm25_cases)}")
         e1 = close(ops.qos_scores(lat_t), network_score(lat_t), "qos_scores shared window")
         e2 = close(ops.qos_scores(flat), network_score(flat), "qos_scores per-query window")
         max_err["qos_scores"] = max(e1, e2)
         sync()
-        _, cand = topk(k_s, cfg.top_s)
-        cand = cand.to(torch.int32)
+        _, cand_route = topk(k_s, cfg.top_s)    # i64, a slice: the form the route passes
+        cand = cand_route.to(torch.int32)
         n_srv = ops.qos_scores(lat_t)
         tool_qos = n_srv[ts.long()]
         tool_load = torch.as_tensor(load, device=dev)[ts.long()]
@@ -391,10 +421,15 @@ def main(rehearse: bool) -> None:
             return x[None, :] + 0.01 * torch.rand((n_q, n_t), generator=gen, device=dev)
 
         live = torch.tensor([0.45, 0.55, 0.3, 0.2], device=dev)
+        q_t_dense = torch.randint(1, 4, q_t.shape, generator=gen, device=dev).float()
         variants = {
             "broadcast rows": dict(args=(q_t, w_t, tool_qos, tool_load, tool_dead, None),
                                    kw=dict(alpha=0.5, beta=0.5, gamma=0.35, delta=0.4,
                                            tool_rtt=tool_rtt)),
+            "fully dense queries": dict(args=(q_t_dense, w_t, tool_qos, tool_load, tool_dead,
+                                              q_t_dense.flip(0)),
+                                        kw=dict(alpha=0.5, beta=0.5, gamma=0.35, delta=0.4,
+                                                tool_rtt=tool_rtt)),
             "per-query rows": dict(args=(q_t, w_t, per_q(tool_qos), per_q(tool_load),
                                          (per_q(tool_dead) > 0.5).float(), None),
                                    kw=dict(alpha=0.5, beta=0.5, gamma=0.35, delta=0.4,
@@ -407,19 +442,23 @@ def main(rehearse: bool) -> None:
                 kw=dict(alpha=live[0], beta=live[1], gamma=live[2], delta=live[3],
                         tool_rtt=tool_rtt, tool_aff=per_q(tool_rtt) * 0.5, eps=0.25)),
         }
-        errs = []
+        # each variant with the engine's server -> tools map and the route's
+        # candidates, and with the map the wrapper builds when given none;
+        # every output torch.equal to the plain masked product and top-k
         for name, v in variants.items():
             q_, w_, qos_, load_, dead_, qr_ = v["args"]
             kw = dict(k=cfg.top_k, temp=1.0, **v["kw"])
-            got = ops.fused_score_select(q_, w_, ts, cand, qos_, load_, dead_, qr_, **kw)
             want = kref.fused_score_select_ref(q_, w_, ts, cand, qos_, load_, dead_, qr_, **kw)
-            sync()
-            if not torch.equal(got[0].cpu(), want[0].cpu()):
-                fail(f"fused_score_select {name}: decisions differ from the plain version")
-            errs += [close(g, w, f"fused_score_select {name}") for g, w in zip(got[1:], want[1:])]
-            log(f"phase 2: fused_score_select [{name}] decisions equal, "
-                f"max abs err {max(errs[-3:])}")
-        max_err["fused_score_select"] = max(errs)
+            for form, c_, extra in (("engine CSR", cand_route, dict(tool_csr=csr)),
+                                    ("wrapper's CSR", cand, {})):
+                got = ops.fused_score_select(q_, w_, ts, c_, qos_, load_, dead_, qr_, **kw,
+                                             **extra)
+                sync()
+                for g, w, out in zip(got, want, ("tool", "C", "N", "S")):
+                    equal(g, w, f"fused_score_select [{name}, {form}] {out}")
+            log(f"phase 2: fused_score_select [{name}] bit-equal to the plain version "
+                "(engine CSR, wrapper's CSR)")
+        max_err["fused_score_select"] = 0.0
 
         # fused_select at the shapes its paths give it.  The operands of the
         # mega tail [256, 16] and of a dense-shard merge [256, 4 x 16] are
@@ -455,8 +494,9 @@ def main(rehearse: bool) -> None:
                        make_sharded_engine("sonar_ft", servers, mcfg, n_shards=4, index=index,
                                            device=dev, use_kernels=True), **ft_kw)
         mega_a, mega_k = captured["mega sonar_adapt: per-query rows, dead, rtt, live weights"]
-        sel_full = torch.where(kref.candidate_mask(ts, cand), ops.bm25_scores(q_t, w_t), kref.NEG)
-        val_full = ops.bm25_scores(q_r, w_t)
+        w_tt = w_t.t().contiguous()
+        sel_full = torch.where(kref.candidate_mask(ts, cand), ops.bm25_scores(q_t, w_tt), kref.NEG)
+        val_full = ops.bm25_scores(q_r, w_tt)
         cases = dict(captured)
         cases["mega sonar_adapt, bf16 operands"] = (
             (mega_a[0].bfloat16(), mega_a[1].bfloat16(), *mega_a[2:]), mega_k)
@@ -799,9 +839,11 @@ def main(rehearse: bool) -> None:
         """Wall ms of ``n`` calls of ``fn`` (after a warm-up) under the
         profiler, and the device time per call by kernel name (us);
         annotations are left out.  The tracer now and then returns no
-        device activity at all (about one profile in five on the H100);
-        such a profile is taken again, up to three times, and an empty
-        result means "not measured", never zero."""
+        device activity at all (about one profile in five on the H100), or
+        only part of it; a profile in which some kernel's count of records
+        is not a multiple of ``n`` (so some calls' records are missing) is
+        taken again, as an empty one is, up to three times, and then means
+        "not measured" (empty), never zero or a share of the calls."""
         fn()
         sync()
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -812,7 +854,7 @@ def main(rehearse: bool) -> None:
                     fn()
                 sync()
                 wall = (time.perf_counter() - t) * 1e3 / n
-            per = {}
+            per, whole = {}, True
             for ev in prof.key_averages():
                 if ev.device_type != torch.autograd.DeviceType.CUDA \
                         or getattr(ev, "is_user_annotation", False) \
@@ -822,8 +864,10 @@ def main(rehearse: bool) -> None:
                     or getattr(ev, "self_cuda_time_total", 0)
                 if d:
                     per[ev.key] = d / n
-            if per:
+                    whole = whole and ev.count % n == 0
+            if per and whole:
                 break
+            per = {}
         return wall, per
 
     def bound(n_bytes, n_ops, ops_per_s=FP32_OPS_PER_S):
@@ -836,12 +880,15 @@ def main(rehearse: bool) -> None:
         # queries use and their non-zero terms, and the full output
         nnz = int((q_s != 0).sum())
         used_cols = int((q_s != 0).any(0).sum())
+        log(f"phase 4: bm25_scores queries use {used_cols} of {q_s.shape[1]} columns, "
+            f"{nnz / q_s.shape[0]:.2f} non-zero terms per query on average "
+            f"(at most {int((q_s != 0).sum(1).max())})")
         b_bm25 = bound(4 * (q_s.numel() + used_cols * w_s.shape[0] + k_s.numel()),
                        2 * nnz * w_s.shape[0])
         rows.append(dict(
-            name="bm25_scores", ms=timed(lambda: ops.bm25_scores(q_s, w_s)),
+            name="bm25_scores", ms=timed(lambda: ops.bm25_scores(q_s, w_st)),
             plain_ms=timed(lambda: bm25_plain(w_s, q_s), n=max(3, reps // 5)),
-            library_ms=timed(lambda: torch.matmul(q_s, w_s.T)),
+            library_ms=timed(lambda: torch.matmul(q_s, w_st)),
             bound=b_bm25, dense_bound_ms=bound(4 * (q_s.numel() + w_s.numel() + k_s.numel()),
                                                2 * k_s.numel() * q_s.shape[1])[0],
             shape=f"[{q_s.shape[0]}, {q_s.shape[1]}] x [{w_s.shape[0]}, {w_s.shape[1]}]"))
@@ -862,10 +909,12 @@ def main(rehearse: bool) -> None:
                              + 4 * q_t.shape[0]), 2 * n_pairs * V_t)
         fk = dict(k=cfg.top_k, alpha=0.5, beta=0.5, gamma=0.35, delta=0.4, temp=1.0,
                   tool_rtt=tool_rtt)
+        def fused_call():         # as the route calls it: its top-s slice and the engine's map
+            return ops.fused_score_select(q_t, w_t, ts, cand_route, tool_qos, tool_load,
+                                          tool_dead, tool_csr=csr, **fk)
+
         rows.append(dict(
-            name="fused_score_select",
-            ms=timed(lambda: ops.fused_score_select(q_t, w_t, ts, cand, tool_qos, tool_load,
-                                                    tool_dead, **fk)),
+            name="fused_score_select", ms=timed(fused_call),
             plain_ms=timed(lambda: kref.fused_score_select_ref(
                 q_t, w_t, ts, cand, tool_qos, tool_load, tool_dead, **fk), n=max(3, reps // 5)),
             library_ms=None, bound=b_fused,
@@ -919,12 +968,15 @@ def main(rehearse: bool) -> None:
             bound=bound(2 * (2 * kd.numel() + 2 * qd.numel()), 4 * 8 * 16 * S_att * 128,
                         BF16_OPS_PER_S),
             shape=f"8 slots x 16 heads against [8, {S_att}, 8, 128] caches, bf16"))
-        # the attention kernels' own device time per call (the split and
-        # merge kernels of decode together), apart from the wrapper's host
-        # work that the CUDA-event window includes when the host is the
-        # slower side; the same for the SDPA call beside each
+        # the kernels' own device time per call (the split and merge
+        # kernels of decode together), apart from the wrapper's host work
+        # that the CUDA-event window includes when the host is the slower
+        # side; the same for the library call beside each, where there is one
         if dev.type == "cuda":
-            calls = {     # name -> (the kernel's call, the SDPA call beside it)
+            calls = {     # name -> (the kernel's call, the library call beside it or None)
+                "bm25_scores": (lambda: ops.bm25_scores(q_s, w_st),
+                                lambda: torch.matmul(q_s, w_st)),
+                "fused_score_select": (fused_call, None),
                 "flash_attention": (lambda: ops.flash_attention(qf, kf, vf),
                                     lambda: sdpa(qf, kf, vf, is_causal=True, enable_gqa=True)),
                 "decode_attention": (lambda: ops.decode_attention(qd, kt, vt, full),
@@ -937,13 +989,17 @@ def main(rehearse: bool) -> None:
             for r in rows:
                 if r["name"] not in calls:
                     continue
-                _, per = device_us(calls[r["name"]][0], 20)
-                _, per_lib = device_us(calls[r["name"]][1], 20)
+                kernel_fn, lib_fn = calls[r["name"]]
+                _, per = device_us(kernel_fn, 20)
+                lib = ""
+                if lib_fn is not None:
+                    _, per_lib = device_us(lib_fn, 20)
+                    lib = (f"; library device time per call {per_call(per_lib)} against its "
+                           f"window {r['library_ms']:.4f} ms")
                 log(f"phase 4: {r['name']} {r['shape']}: device time per call {per_call(per)} "
                     "(profile of 20 calls: " + "; ".join(f"{k[:40]} {v:.1f} us"
                                                           for k, v in per.items())
-                    + f") against the CUDA-event window {r['ms']:.4f} ms; SDPA device time per "
-                    f"call {per_call(per_lib)} against its window {r['library_ms']:.4f} ms")
+                    + f") against the CUDA-event window {r['ms']:.4f} ms" + lib)
             lib = _build.build_dir() / "libflash_attention.so"
             sass = subprocess.run([str(Path(_build.nvcc()).parent / "cuobjdump"), "-sass",
                                    str(lib)], capture_output=True, text=True, check=True,

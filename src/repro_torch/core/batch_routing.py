@@ -66,6 +66,7 @@ from repro_torch.core.routing import (
 )
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels.score_fuse import ToolCsr, tool_csr
 
 NEG = kref.NEG
 
@@ -168,9 +169,11 @@ def _route_pipeline(
     q_server: torch.Tensor,          # [n_q, V_s]
     q_tool: torch.Tensor,            # [n_q, V_t]
     q_rerank: Optional[torch.Tensor],
-    w_server: torch.Tensor,          # [n_servers, V_s]
+    w_server_t: torch.Tensor,        # [V_s, n_servers]: the server weights, transposed
     w_tool: torch.Tensor,            # [n_tools, V_t]
     tool_server: torch.Tensor,       # [n_tools] i32
+    tool_server_l: torch.Tensor,     # the same, i64 (the gathers' index)
+    tool_csr: Optional[ToolCsr],     # server -> tools map of tool_server (kernel path)
     latency_hist: Optional[torch.Tensor],  # [n_servers, T] or [n_q, n_servers, T]
     server_load: Optional[torch.Tensor],   # [n_servers] or [n_q, n_servers] rho
     telemetry_age: Optional[torch.Tensor],  # [n_servers] or [n_q, n_servers] s
@@ -205,28 +208,28 @@ def _route_pipeline(
     qos_params: QosParams,
 ):
     n_q = q_server.shape[0]
-    n_servers = w_server.shape[0]
+    n_servers = w_server_t.shape[1]
     n_tools = w_tool.shape[0]
-    ts = tool_server.long()
+    ts = tool_server_l
     dev = q_server.device
 
-    # -- stage 1: server scores + top-s candidate mask (Eq. 1-2) --
+    # -- stage 1: server scores + top-s candidates (Eq. 1-2) --
     if use_kernels:
-        s_scores = ops.bm25_scores(q_server, w_server)
+        s_scores = ops.bm25_scores(q_server, w_server_t)
     else:
-        s_scores = bm25_scores(w_server, q_server)
+        s_scores = bm25_scores(w_server_t.t(), q_server)
     # SONAR-FT: demote known-failed servers below every live one before
     # the top-s (NEG ties re-fill in index order)
     if use_failover and dead_mask is not None:
         dm_server = dead_mask if dead_mask.ndim == 2 else dead_mask[None, :]
         s_scores = torch.where(dm_server > 0.0, NEG, s_scores)
     _, cand_servers = topk(s_scores, min(top_s, n_servers))
-    member = torch.zeros((n_q, n_servers), dtype=torch.bool, device=dev)
-    member.scatter_(1, cand_servers, True)                  # [n_q, n_servers]
 
     # -- stage 2 (unfused path only): tool scores masked outside candidate
     # servers (Eq. 3-4) plus the rerank re-valuation --
     if not use_kernels:
+        member = torch.zeros((n_q, n_servers), dtype=torch.bool, device=dev)
+        member.scatter_(1, cand_servers, True)              # [n_q, n_servers]
         sel = torch.where(member[:, ts], bm25_scores(w_tool, q_tool), NEG)
         val = bm25_scores(w_tool, q_rerank) if rerank else sel
 
@@ -288,7 +291,7 @@ def _route_pipeline(
             q_rerank if rerank else None,
             k=top_k, alpha=eff_alpha, beta=eff_beta, gamma=eff_gamma,
             tool_rtt=tool_rtt, delta=eff_delta, tool_aff=tool_aff, eps=eps,
-            temp=temp,
+            temp=temp, tool_csr=tool_csr,
         )
     else:
         tool_idx, c, n, s = kref.fused_select_ref(
@@ -340,8 +343,14 @@ class BatchRoutingEngine:
         self.use_kernels = use_kernels
         self.index = index if index is not None else ToolIndex(servers)
         self._tool_server = self._to(self.index.tool_server, torch.int32)
-        self._w_server = self._to(self.index.server_corpus.weights, torch.float32)
+        self._tool_server_l = self._tool_server.long()
+        # the server weights are kept transposed, [V_s, n_servers]: the
+        # layout the BM25 kernel reads (a used term is one contiguous row);
+        # the plain path reads the [n_servers, V_s] view without a copy
+        self._w_server_t = self._to(self.index.server_corpus.weights.T, torch.float32)
+        self.n_servers = int(self._w_server_t.shape[1])
         self._w_tool = self._to(self.index.tool_corpus.weights, torch.float32)
+        self._tool_csr = tool_csr(self._tool_server, self.n_servers)
         # SONAR-ADAPT learner (None for the hand-tuned algorithms)
         self.learner = _adaptive.FeedbackLearner.for_engine(self.algo, cfg, adapt, self.device)
 
@@ -444,7 +453,8 @@ class BatchRoutingEngine:
                 self._to(batch.q_server, f32),
                 self._to(batch.q_tool, f32),
                 None if batch.q_rerank is None else self._to(batch.q_rerank, f32),
-                self._w_server, self._w_tool, self._tool_server,
+                self._w_server_t, self._w_tool, self._tool_server, self._tool_server_l,
+                self._tool_csr if self.use_kernels else None,
                 lat, load, age, dead, rtt, reg_idx, reg_rtt, aff, adapt_w,
                 top_s=cfg.top_s, top_k=cfg.top_k, alpha=cfg.alpha,
                 beta=cfg.beta, gamma=cfg.gamma, load_knee=cfg.load_knee,
@@ -507,7 +517,7 @@ class BatchRoutingEngine:
         per-query failover counts."""
         budget = self.cfg.failover_budget if budget is None else int(budget)
         n = batch.n
-        n_servers = int(self._w_server.shape[0])
+        n_servers = self.n_servers
         mask = np.zeros((n, n_servers), bool)
         if failed_mask is not None:
             mask |= np.asarray(failed_mask, bool)

@@ -278,12 +278,12 @@ class _StaticCfg:
 # Per-shard stages on shard-stacked tensors [J, ...]
 # ---------------------------------------------------------------------------
 
-def _bm25_2d(q: torch.Tensor, w: torch.Tensor, sc: _StaticCfg) -> torch.Tensor:
-    """[n_q, V] x [n_docs, V] -> [n_q, n_docs]: the BM25 kernel or its
+def _bm25_2d(q: torch.Tensor, wt: torch.Tensor, sc: _StaticCfg) -> torch.Tensor:
+    """[n_q, V] x [V, n_docs] -> [n_q, n_docs]: the BM25 kernel or its
     plain version (the same ordered sums)."""
     if sc.use_kernels:
-        return ops.bm25_scores(q, w)
-    return bm25.bm25_scores(w, q)
+        return ops.bm25_scores(q, wt)
+    return bm25.bm25_scores(wt.t(), q)
 
 
 def _qos_2d(lat: torch.Tensor, sc: _StaticCfg) -> torch.Tensor:
@@ -292,10 +292,10 @@ def _qos_2d(lat: torch.Tensor, sc: _StaticCfg) -> torch.Tensor:
     return network_score(lat, sc.qos_params)
 
 
-def _stacked_scores(q: torch.Tensor, w: torch.Tensor, sc: _StaticCfg) -> torch.Tensor:
-    """q [n_q, V] against shard-stacked rows w [J, S, V] -> [J, n_q, S]."""
-    J, S, V = w.shape
-    return _bm25_2d(q, w.reshape(J * S, V), sc).reshape(-1, J, S).permute(1, 0, 2)
+def _stacked_scores(q: torch.Tensor, wt: torch.Tensor, sc: _StaticCfg) -> torch.Tensor:
+    """q [n_q, V] against shard-stacked weights wt [V, J, S] -> [J, n_q, S]."""
+    V, J, S = wt.shape
+    return _bm25_2d(q, wt.reshape(V, J * S), sc).reshape(-1, J, S).permute(1, 0, 2)
 
 
 def _stage1_stacked(d: dict, sc: _StaticCfg) -> tuple:
@@ -509,19 +509,19 @@ def _route_sharded(dyn: dict, sc: _StaticCfg):
     the input mode: dense or tiled weights and telemetry, and which
     optional vectors are supplied."""
     # -- tiled template scoring (small products + gathers).  bf16 template
-    # weights are upcast to f32 here: exact, so scores equal scoring the
-    # rounded f32 weights --
+    # weights [V, n_templates] go to the products as they are: both widen
+    # them exactly, so scores equal scoring the rounded f32 weights --
     compact2 = sc.compact2 and "tool_doc_map" in dyn
     d = dict(dyn)
     t_full = v_full = nt = None
     if "server_doc_map" in dyn:
-        s_full = _bm25_2d(dyn["q_server"], dyn["w_server_t"].to(_F32), sc)
+        s_full = _bm25_2d(dyn["q_server"], dyn["w_server_tpl"], sc)
         d["s_pre"] = s_full[:, dyn["server_doc_map"].long()].permute(1, 0, 2)
     if "tool_doc_map" in dyn:
-        w_tool_t = dyn["w_tool_t"].to(_F32)
-        t_full = _bm25_2d(dyn["q_tool"], w_tool_t, sc)
+        w_tool_tpl = dyn["w_tool_tpl"]
+        t_full = _bm25_2d(dyn["q_tool"], w_tool_tpl, sc)
         if sc.rerank:
-            v_full = _bm25_2d(dyn["q_rerank"], w_tool_t, sc)
+            v_full = _bm25_2d(dyn["q_rerank"], w_tool_tpl, sc)
         if not compact2:
             d["t_pre"] = t_full[:, dyn["tool_doc_map"].long()].permute(1, 0, 2)
             if sc.rerank:
@@ -648,12 +648,13 @@ class ShardedRoutingEngine:
         self.compact_stage2 = False
         k_slot = 0
         if self.tiled:
-            # bf16-rounded template weights stay bf16 on the card; the
-            # pipeline's f32 upcast is exact
+            # template weights, transposed [V, n_templates] as the BM25
+            # kernel reads them; bf16-rounded ones stay bf16 on the card
+            # (both BM25 paths widen them exactly)
             w_dtype = (torch.bfloat16 if getattr(index, "weights_dtype", "float32")
                        in ("bfloat16", "bf16") else torch.float32)
-            self._w_server_t = self._to(index.server_corpus.weights, w_dtype)
-            self._w_tool_t = self._to(index.tool_corpus.weights, w_dtype)
+            self._w_server_tpl = self._to(index.server_corpus.weights.T, w_dtype)
+            self._w_tool_tpl = self._to(index.tool_corpus.weights.T, w_dtype)
             self._server_doc_sh = self._to(index.server_doc_map[plan.server_gid], torch.int32)
             self._tool_doc_sh = self._to(index.tool_doc_map[plan.tool_gid], torch.int32)
             # candidate-compacted stage-2 tables: first global tool id, tool
@@ -668,10 +669,12 @@ class ShardedRoutingEngine:
                 self._tool_doc0_g = self._to(np.asarray(index.tool_doc_map)[starts], torch.int32)
                 k_slot = int(counts.max())
         else:
+            # shard-stacked weights, transposed [V, J, S] as the BM25
+            # kernel reads them
             ws = np.asarray(index.server_corpus.weights, np.float32)
             wt = np.asarray(index.tool_corpus.weights, np.float32)
-            self._w_server_sh = self._to(ws[plan.server_gid], torch.float32)
-            self._w_tool_sh = self._to(wt[plan.tool_gid], torch.float32)
+            self._w_server_sh = self._to(ws[plan.server_gid].transpose(2, 0, 1), torch.float32)
+            self._w_tool_sh = self._to(wt[plan.tool_gid].transpose(2, 0, 1), torch.float32)
 
         self._sc = _StaticCfg(
             top_s=cfg.top_s, top_k=cfg.top_k,
@@ -782,8 +785,8 @@ class ShardedRoutingEngine:
         if self.rerank:
             dyn["q_rerank"] = self._to(batch.q_rerank, _F32)
         if self.tiled:
-            dyn["w_server_t"] = self._w_server_t
-            dyn["w_tool_t"] = self._w_tool_t
+            dyn["w_server_tpl"] = self._w_server_tpl
+            dyn["w_tool_tpl"] = self._w_tool_tpl
             dyn["server_doc_map"] = self._server_doc_sh
             dyn["tool_doc_map"] = self._tool_doc_sh
             if self.compact_stage2:

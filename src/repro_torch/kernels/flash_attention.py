@@ -22,6 +22,15 @@ _FN = None
 _STRIDES = ctypes.c_longlong * 12
 
 
+def padded_head_dim(D: int) -> int:
+    """The compiled width a head dim ``D`` runs at: the least entry of
+    HEAD_DIMS that holds it (`ops` zero-pads up to it)."""
+    for width in HEAD_DIMS:
+        if D <= width:
+            return width
+    raise ValueError(f"head_dim {D} above the widest compiled width {HEAD_DIMS[-1]}")
+
+
 def _fn():
     global _FN
     if _FN is None:

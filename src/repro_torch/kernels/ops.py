@@ -57,13 +57,18 @@ def _on_cuda(*tensors) -> bool:
 # BM25
 # ---------------------------------------------------------------------------
 
-def bm25_scores(qcounts: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """scores [n_q, n_docs] = qcounts [n_q, V] @ weights [n_docs, V]^T."""
-    if not _on_cuda(qcounts, weights):
-        return _bm25_plain(weights, qcounts)
-    return _bm25.bm25_scores_cuda(
-        qcounts.to(torch.float32).contiguous(), weights.to(torch.float32).contiguous()
-    )
+def bm25_scores(qcounts: torch.Tensor, weights_t: torch.Tensor) -> torch.Tensor:
+    """scores [n_q, n_docs] = qcounts [n_q, V] @ weights_t [V, n_docs].
+
+    The weights come transposed, the layout the kernel reads (a used term is
+    one contiguous row); the engines keep their static weights so.  f32 and
+    bf16 weights go to the kernel as they are."""
+    if not _on_cuda(qcounts, weights_t):
+        return _bm25_plain(weights_t.t(), qcounts)
+    if weights_t.dtype not in (torch.float32, torch.bfloat16):
+        weights_t = weights_t.to(torch.float32)
+    return _bm25.bm25_scores_cuda(qcounts.to(torch.float32).contiguous(),
+                                  weights_t.contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -170,11 +175,16 @@ def fused_score_select(
     delta=0.0,
     tool_aff: Optional[torch.Tensor] = None,
     eps: float = 0.0,
+    tool_csr: Optional[_scf.ToolCsr] = None,
 ):
     """Winning (tool_idx i32, C, N, S) per query, the stage-2 matrix never
     materialised on the card.  A fusion weight given as a tensor makes all
     four live: the kernel reads them from a [4] f32 device vector, so a
-    weight change needs no rebuild and no host sync."""
+    weight change needs no rebuild and no host sync.  ``tool_csr`` is the
+    `score_fuse.ToolCsr` of ``tool_server`` (an engine builds it once);
+    without it the map is built here, after one host sync for the server
+    count.  Candidates are server ids in [0, n_servers) (a stage-1 top-s
+    gives them distinct; a repeated one is walked once)."""
     k = min(k, w_tool.shape[0])
     extras = (tool_qos, tool_load, tool_dead, q_rerank, tool_rtt, tool_aff)
     if not _on_cuda(q_tool, w_tool, tool_server, cand_servers, *extras):
@@ -190,11 +200,14 @@ def fused_score_select(
             dtype = x.dtype if x.dtype in (torch.float32, torch.bfloat16) else torch.float32
         return x.to(dtype).contiguous()
 
+    cand = cand_servers.to(torch.int32).contiguous()    # the top-s slice: one copy
+    if tool_csr is None:
+        ids = torch.cat([tool_server.reshape(-1).long(), cand.reshape(-1).long(),
+                         cand.new_zeros(1, dtype=torch.long)])
+        tool_csr = _scf.tool_csr(tool_server, int(ids.max()) + 1)
     q = operand(q_tool)
     return _scf.fused_score_select_cuda(
-        q, operand(w_tool),
-        tool_server.to(torch.int32).contiguous(),
-        cand_servers.to(torch.int32).contiguous(),
+        q, operand(w_tool), tool_csr, cand,
         {
             "tool_qos": _row(tool_qos), "tool_load": _row(tool_load),
             "tool_rtt": _row(tool_rtt), "tool_dead": _row(tool_dead),
@@ -210,6 +223,18 @@ def fused_score_select(
 # Attention
 # ---------------------------------------------------------------------------
 
+def with_padded_head(fn, *tensors: torch.Tensor, width: int):
+    """``fn(*tensors)`` with each operand's head dim (the last) zero-padded
+    to ``width``, and the result's sliced back to the original D.  Exact for
+    attention whose scale was fixed from the original D: the padded terms
+    of q.k are 0, and the padded V columns only fill the sliced-off ones."""
+    D = tensors[0].shape[-1]
+    if width == D:
+        return fn(*tensors)
+    padded = [torch.nn.functional.pad(t, (0, width - D)) for t in tensors]
+    return fn(*padded)[..., :D]
+
+
 def flash_attention(
     q: torch.Tensor,  # [B, Hq, S, D]
     k: torch.Tensor,  # [B, Hkv, Sk, D]
@@ -220,11 +245,17 @@ def flash_attention(
     """Causal/GQA attention softmax(q k^T / sqrt(D)) v with f32 math, in q's
     dtype.  Any S, no padding; on the card any strides with a contiguous
     last dim (a transposed view of [B, S, H, D] goes in without a copy) and
-    all three in one dtype, float32 or bfloat16."""
+    all three in one dtype, float32 or bfloat16.  The causal mask is
+    bottom-right, ``tril(k=Sk - Sq)`` as `mha_ref` has it, not the Pallas
+    kernel's top-left, so with Sq < Sk the queries are the last Sq
+    positions.  On the card a head dim between the kernel's widths
+    (`flash_attention.HEAD_DIMS`) is zero-padded to the next one."""
     sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if not _on_cuda(q, k, v):
         return kref.mha_ref(q, k, v, sm_scale=sm_scale, causal=causal)
-    return _fa.flash_attention_cuda(q, k, v, sm_scale=sm_scale, causal=causal)
+    return with_padded_head(
+        lambda q_, k_, v_: _fa.flash_attention_cuda(q_, k_, v_, sm_scale=sm_scale, causal=causal),
+        q, k, v, width=_fa.padded_head_dim(q.shape[-1]))
 
 
 def decode_attention(
@@ -236,7 +267,8 @@ def decode_attention(
     """Single-token GQA attention over a variable-length cache (scale
     1/sqrt(D)) -> [B, Hq, D] in q's dtype.  On the card k/v may be any
     strided view with a contiguous last dim (the model's [B, S, Hkv, D]
-    cache, transposed)."""
+    cache, transposed); a head dim between the kernel's widths is
+    zero-padded to the next one (a copy of the cache per call)."""
     B, Hq, D = q.shape
     Hkv = k.shape[1]
     G = Hq // Hkv
@@ -247,5 +279,7 @@ def decode_attention(
     else:
         if lengths.dtype != torch.int32 or not lengths.is_contiguous():
             lengths = lengths.to(torch.int32).contiguous()
-        out = _dec.decode_attention_cuda(qg, k, v, lengths, sm_scale=sm_scale)
+        out = with_padded_head(
+            lambda q_, k_, v_: _dec.decode_attention_cuda(q_, k_, v_, lengths, sm_scale=sm_scale),
+            qg, k, v, width=_fa.padded_head_dim(D))
     return out.reshape(B, Hq, D)

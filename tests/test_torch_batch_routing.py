@@ -313,3 +313,23 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert len(files) > 10
     for f in files:
         assert not pattern.search(f.read_text()), f"{f} imports jax or the reference"
+
+
+def test_engine_keeps_transposed_server_weights_and_tool_csr():
+    """The engine holds its server weights once, transposed ([V_s,
+    n_servers], the BM25 kernel's layout), equal to the reference index's
+    weights; and the server -> tools map of its tool array, which for a
+    `ToolIndex` (tools listed server by server) is the identity order."""
+    j_servers = jdataset.mock_cluster(jdataset.build_server_pool(0), n_per_template=3)
+    j_index = jrouting.ToolIndex(j_servers)
+    eng = make_engine("sonar", _port_servers(j_servers), device="cpu")
+    w = np.asarray(j_index.server_corpus.weights, np.float32)
+    assert eng._w_server_t.shape == w.T.shape and eng._w_server_t.is_contiguous()
+    assert eng._w_server_t.numpy().tobytes() == np.ascontiguousarray(w.T).tobytes()
+    assert not hasattr(eng, "_w_server")          # no second, row-major copy
+    assert eng.n_servers == len(j_servers)
+    csr = eng._tool_csr
+    ts = np.asarray(j_index.tool_server)
+    np.testing.assert_array_equal(csr.tools.numpy(), np.arange(len(ts)))
+    np.testing.assert_array_equal(csr.offsets.numpy(),
+                                  np.searchsorted(ts, np.arange(len(j_servers) + 1)))

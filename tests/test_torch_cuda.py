@@ -38,6 +38,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import decode_splits
 from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels import score_fuse
 from repro_torch.traffic import mega_fleet_index
 
 RTOL, ATOL = 2e-6, 2e-7
@@ -71,9 +72,159 @@ def test_bm25_kernel_bit_equal_to_plain(cuda, n_q, n_d, V):
     q = torch.from_numpy(rng.poisson(0.4, (n_q, V)).astype(np.float32)).to(cuda)
     w = torch.from_numpy(rng.random((n_d, V)).astype(np.float32)).to(cuda)
     w[n_d // 2:] = w[0].clone()
-    got = ops.bm25_scores(q, w)
+    got = ops.bm25_scores(q, w.t())
     assert torch.equal(got, bm25.bm25_scores(w, q))
     assert torch.equal(got[:, n_d // 2:], got[:, :1].expand(-1, n_d - n_d // 2))
+
+
+def _queries(rng, n_q, V, density):
+    """Term counts [n_q, V]: all-zero rows (0), one term per row ("one"),
+    a share of the columns, or every column (1.0)."""
+    if density == "one":
+        q = np.zeros((n_q, V), np.float32)
+        q[np.arange(n_q), rng.integers(0, V, n_q)] = rng.integers(1, 4, n_q)
+        return q
+    return ((rng.random((n_q, V)) < density) * rng.integers(1, 4, (n_q, V))).astype(np.float32)
+
+
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("V", [1, 17, 123, 793, 1500])
+@pytest.mark.parametrize("density", [0.0, "one", 0.02, 1.0])
+def test_bm25_sparse_query_kernel_bit_equal(cuda, density, V, wdtype):
+    """The sparse-query product against the plain ordered sum over all of
+    V: bit-equal at every query density and width, with bf16 weights read
+    as they are in the engines' transposed layout, and replica rows tied
+    bit for bit."""
+    rng = np.random.default_rng(V + (7 if density == "one" else int(100 * density)))
+    n_q, n_d = 37, 1100
+    q = torch.from_numpy(_queries(rng, n_q, V, density)).to(cuda)
+    w = torch.from_numpy((rng.random((n_d, V)) * 4 * (rng.random((n_d, V)) < 0.3))
+                         .astype(np.float32)).to(cuda).to(wdtype)
+    w[700:] = w[3].clone()
+    want = bm25.bm25_scores(w, q)
+    got = ops.bm25_scores(q, w.t().contiguous())
+    assert torch.equal(got, want)
+    assert torch.equal(got[:, 700:], got[:, 3:4].expand(-1, n_d - 700))
+
+
+def _csr_fleet(rng, case):
+    """Stage-2 operands for the candidate walk, by case."""
+    n_q, V, n_srv, n_t, top_s, k = 37, 96, 300, 1041, 6, 8
+    if case == "top_s_128":
+        top_s = 128
+    if case == "k_128":                            # a pool of ~220 tools over two rounds
+        top_s, k = 64, 128
+    if case == "wide_vocab":
+        V = 1100
+    q = rng.poisson(0.4, (n_q, V)).astype(np.float32)
+    qr = rng.poisson(0.4, (n_q, V)).astype(np.float32)
+    q[0] = 0.0                                     # a query with no term
+    ts = np.sort(rng.integers(0, n_srv - 50 * (case == "no_tool_servers"), n_t))
+    if case == "big_server":                       # 400 tools on server 5: > one round of 128
+        ts = np.sort(np.concatenate([rng.integers(0, n_srv, n_t - 400), np.full(400, 5)]))
+    hosting = np.unique(ts)
+    empty = np.setdiff1d(np.arange(n_srv), hosting)
+    cand = np.stack([rng.choice(n_srv, top_s, replace=False) for _ in range(n_q)])
+    if case == "big_server":
+        cand[:, 0] = 5
+    if case == "no_tool_servers":                  # some candidates host nothing; row 1 only those
+        cand[:, 1] = empty[rng.integers(0, len(empty), n_q)]
+        cand[1] = rng.choice(empty, top_s, replace=False)
+    if case == "repeated_candidates":              # a candidate twice in a row is walked once
+        cand[:, 2] = cand[:, 0]
+    if case == "unsorted":
+        ts = rng.permutation(ts)
+    if case == "dense_queries":
+        q = rng.integers(1, 4, (n_q, V)).astype(np.float32)
+        qr = rng.integers(1, 4, (n_q, V)).astype(np.float32)
+    w = (rng.random((n_t, V)) * (rng.random((n_t, V)) < 0.2)).astype(np.float32)
+    w[ts == ts[0]] = w[0]                          # replica tools of one server tie exactly
+    return q, qr, w, ts.astype(np.int32), cand.astype(np.int32), n_srv, k
+
+
+@pytest.mark.parametrize("csr", [True, False])
+@pytest.mark.parametrize("case", ["sorted", "unsorted", "big_server", "top_s_128", "k_128",
+                                  "no_tool_servers", "dense_queries", "wide_vocab", "bf16",
+                                  "repeated_candidates"])
+def test_fused_candidate_walk_bit_equal(cuda, case, csr):
+    """The CSR walk of the candidates' tools against the plain masked
+    product and top-k, bit for bit, with the engine's server -> tools map
+    (``csr``) or the one `ops.fused_score_select` builds without it, rerank
+    and live weights on."""
+    rng = np.random.default_rng(len(case) + 10 * csr)
+    q, qr, w, ts, cand, n_srv, k = (torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+                                    if isinstance(x, np.ndarray) else x
+                                    for x in _csr_fleet(rng, case))
+    if case == "bf16":
+        q, qr, w = q.bfloat16(), qr.bfloat16(), w.bfloat16()
+    n_t = w.shape[0]
+    live = torch.tensor([0.45, 0.55, 0.3, 0.2], device=cuda)
+    rows = dict(tool_rtt=torch.rand(n_t, device=cuda), tool_aff=torch.rand(n_t, device=cuda))
+    qos_row, load = torch.rand(n_t, device=cuda) * 2 - 1, torch.rand(n_t, device=cuda)
+    dead = (torch.rand(n_t, device=cuda) < 0.2).float()
+    kw = dict(k=k, alpha=live[0], beta=live[1], gamma=live[2], delta=live[3], eps=0.25, **rows)
+    extra = dict(tool_csr=score_fuse.tool_csr(ts, n_srv)) if csr else {}
+    for rr in (None, qr):
+        got = ops.fused_score_select(q, w, ts, cand.long(), qos_row, load, dead, rr, **kw,
+                                     **extra)
+        want = kref.fused_score_select_ref(q, w, ts, cand, qos_row, load, dead, rr, **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (case, rr is None)
+    if case == "no_tool_servers":
+        assert int(got[0][1]) == 0 and float(got[3][1]) == float(torch.tensor(kref.NEG))
+
+
+@pytest.mark.parametrize("D", [8, 24, 40, 96])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernels_pad_head_dims(cuda, dtype, D):
+    """Head dims between the compiled widths run zero-padded to the next
+    one, against the unpadded plain versions (scale 1/sqrt(D))."""
+    g = torch.Generator(device=cuda).manual_seed(D)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
+               for s in ((2, 4, 130, D), (2, 2, 130, D), (2, 2, 130, D)))
+    tol = ATTN_TOL[dtype]
+    got = ops.flash_attention(q, k, v)
+    assert got.shape == q.shape
+    torch.testing.assert_close(got, kref.mha_ref(q, k, v, sm_scale=1 / math.sqrt(D), causal=True),
+                               **tol)
+    lengths = torch.tensor([1, 130], dtype=torch.int32, device=cuda)
+    got = ops.decode_attention(q[:, :, 0].contiguous(), k, v, lengths)
+    want = kref.decode_ref(q[:, :, 0].reshape(2, 2, 2, D), k, v, lengths.reshape(2, 1),
+                           sm_scale=1 / math.sqrt(D)).reshape(2, 4, D)
+    torch.testing.assert_close(got, want, **tol)
+
+
+def test_reduced_qwen2_serves_on_the_kernel_path(cuda):
+    """The reduced qwen2-7b (head_dim 8) served on the card with
+    attn_impl="pallas": the attention kernels run at head_dim 8 padded to
+    16, every request finishes, and the tokens equal the plain path's."""
+    from repro_torch import configs
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    cfg = dataclasses.replace(configs.get_reduced("qwen2-7b"), dtype="float32",
+                              attn_impl="pallas")
+    assert cfg.resolved_head_dim == 8
+    params = get_model(cfg).init_params(seed=0, device=cuda)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (11, 4, 9, 6)]
+    served = {}
+    for impl in ("pallas", "naive"):
+        eng = ServeEngine(get_model(dataclasses.replace(cfg, attn_impl=impl)), params,
+                          n_slots=2, cap=32, device=cuda)
+        reqs = [Request(rid=i, tokens=t, max_new_tokens=5) for i, t in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        ops.reset_launches()
+        steps = eng.drain()
+        launches = ops.launch_counts()
+        assert all(r.done and len(r.generated) == 5 for r in reqs)
+        served[impl] = [r.generated for r in reqs]
+        if impl == "pallas":
+            assert launches["flash_attention"] == cfg.n_layers * len(prompts)
+            assert launches["decode_attention"] == cfg.n_layers * steps > 0
+        else:
+            assert launches["flash_attention"] == launches["decode_attention"] == 0
+    assert served["pallas"] == served["naive"]
 
 
 @pytest.mark.parametrize("T", [1, 20, 64, 200])
@@ -131,7 +282,7 @@ def test_ops_never_take_the_plain_path_on_cuda(cuda, monkeypatch):
     monkeypatch.setattr(kref, "fused_score_select_ref", plain_called)
     monkeypatch.setattr(kref, "fused_select_ref", plain_called)
     ops.reset_launches()
-    ops.bm25_scores(q, w)
+    ops.bm25_scores(q, w.t())
     ops.qos_scores(lat)
     ops.fused_score_select(q, w, ts, cand, torch.zeros(700, device=cuda), q_rerank=qr,
                            k=5, alpha=1.0, beta=0.0)
@@ -148,8 +299,13 @@ def test_ops_never_take_the_plain_path_on_cuda(cuda, monkeypatch):
     assert ops.launch_counts() == {"bm25_scores": 1, "qos_scores": 1, "fused_score_select": 1,
                                    "fused_select": 1, "flash_attention": 1,
                                    "decode_attention": 1}
+    # a head dim between the compiled widths is zero-padded (40 -> 64); one
+    # above the widest is refused
+    assert ops.flash_attention(q[..., :40], kv[..., :40], kv[..., :40]).shape == (1, 4, 70, 40)
+    assert ops.launch_counts()["flash_attention"] == 2
+    wide = torch.randn((1, 4, 70, 160), device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
-        ops.flash_attention(q[..., :40], kv[..., :40], kv[..., :40])
+        ops.flash_attention(wide, wide[:, :2], wide[:, :2])
     with pytest.raises(ValueError, match="dtype"):
         ops.flash_attention(q.bfloat16(), kv, kv)
     with pytest.raises(ValueError, match="k="):

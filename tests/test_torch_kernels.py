@@ -216,10 +216,46 @@ def test_bm25_scores_ragged_shapes(n_q, n_d, V):
     q = rng.poisson(0.5, (n_q, V)).astype(np.float32)
     w = (rng.random((n_d, V)) * (rng.random((n_d, V)) < 0.3)).astype(np.float32)
     w[n_d // 2:] = w[0]                               # replica rows tie exactly
-    got = ops.bm25_scores(_t(q), _t(w)).numpy()
+    got = ops.bm25_scores(_t(q), _t(w).t()).numpy()
     np.testing.assert_allclose(got, np.asarray(jops.bm25_scores(q, w, interpret=True)),
                                rtol=RTOL, atol=ATOL)
     assert np.all(got[:, n_d // 2:] == got[:, :1])
+
+
+@pytest.mark.parametrize("order", ["sorted", "unsorted"])
+def test_tool_csr_walk_matches_candidate_mask(order):
+    """The fused kernel's candidate walk over the server -> tools map
+    visits exactly the tools that `candidate_mask` marks, each once,
+    ascending within a server, whether the map covers just the hosting
+    servers or more; for tools grouped by server the map is the identity
+    order."""
+    rng = np.random.default_rng(3 + (order == "unsorted"))
+    n_srv, n_t, n_q, top_s = 40, 150, 9, 6
+    ts = np.sort(rng.integers(0, n_srv - 5, n_t))       # servers 35.. host no tool
+    if order == "unsorted":
+        ts = rng.permutation(ts)
+    cand = np.stack([rng.choice(n_srv, top_s, replace=False) for _ in range(n_q)])
+    ts_t, cand_t = _t(ts.astype(np.int32)), _t(cand)
+    want = kref.candidate_mask(ts_t, cand_t).numpy()
+    csr = score_fuse.tool_csr(ts_t, n_srv)
+    wide = score_fuse.tool_csr(ts_t, n_srv + 7)       # servers past every id host nothing
+    assert csr.tools.dtype == csr.offsets.dtype == torch.int32
+    assert csr.offsets.shape == (n_srv + 1,)
+    np.testing.assert_array_equal(wide.tools.numpy(), csr.tools.numpy())
+    np.testing.assert_array_equal(wide.offsets.numpy()[:n_srv + 1], csr.offsets.numpy())
+    assert np.all(wide.offsets.numpy()[n_srv:] == n_t)
+    if order == "sorted":
+        np.testing.assert_array_equal(csr.tools.numpy(), np.arange(n_t))
+    off, tl = csr.offsets.numpy(), csr.tools.numpy()
+    for qi in range(n_q):
+        walked = np.concatenate([tl[off[c]:off[c + 1]] for c in cand[qi]])
+        assert len(set(walked.tolist())) == len(walked)
+        mask = np.zeros(n_t, bool)
+        mask[walked] = True
+        np.testing.assert_array_equal(mask, want[qi])
+        for c in cand[qi]:
+            seg = tl[off[c]:off[c + 1]]
+            assert np.all(np.diff(seg) > 0) and np.all(ts[seg] == c)
 
 
 def test_qos_scores_dispatches_to_plain_on_cpu():
@@ -244,7 +280,9 @@ def test_kernel_launchers_refuse_cpu_tensors_without_building():
         qos_score.qos_scores_cuda(x)
     with pytest.raises(ValueError, match="CUDA"):
         score_fuse.fused_score_select_cuda(
-            x, x, torch.zeros(3, dtype=torch.int32), torch.zeros((2, 1), dtype=torch.int32),
+            x, x, score_fuse.ToolCsr(torch.zeros(2, dtype=torch.int32),
+                                     torch.zeros(3, dtype=torch.int32)),
+            torch.zeros((2, 1), dtype=torch.int32),
             {"tool_qos": torch.zeros(3)}, None, k=1, alpha=1.0, beta=0.0, gamma=0.0,
             delta=0.0, eps=0.0, temp=1.0,
         )
@@ -533,3 +571,42 @@ def test_bf16_hi_lo_split_keeps_p_in_f32(S, D):
     assert float((once - want).abs().max()) > 2e-5
     torch.testing.assert_close(
         split, kref.mha_ref(q, k, v, sm_scale=1 / np.sqrt(D)), rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_plain_causal_bottom_right_sq_lt_sk():
+    """Causal attention with fewer queries than keys: the port's mask is
+    bottom-right (``tril(k=Sk - Sq)``, the queries are the last Sq
+    positions), as the reference oracle `mha_ref` has it."""
+    (jq, jk, jv), (q, k, v) = _attn_operands(
+        [(1, 2, 64, 32), (1, 2, 128, 32), (1, 2, 128, 32)], "float32", 64)
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = jref.mha_ref(jq, jk, jv, sm_scale=1 / np.sqrt(32), causal=True)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["flash", "decode"])
+def test_padded_head_matches_unpadded_at_d8(kind):
+    """The head-width padding the wrappers apply on the card, run on the
+    plain versions: zero-padding D = 8 to 16 with the scale of the
+    original D gives the unpadded result."""
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((2, 4, 40, 8), (2, 2, 40, 8), (2, 2, 40, 8)))
+    scale = 1 / np.sqrt(8)
+    assert flash_attention.padded_head_dim(8) == 16
+    if kind == "flash":
+        def fn(q_, k_, v_):
+            return kref.mha_ref(q_, k_, v_, sm_scale=scale, causal=True)
+        args = (q, k, v)
+    else:
+        lengths = torch.tensor([[7], [40]])
+
+        def fn(q_, k_, v_):
+            return kref.decode_ref(q_, k_, v_, lengths, sm_scale=scale)
+        args = (q[:, :, 0].reshape(2, 2, 2, 8).contiguous(), k, v)
+    got = ops.with_padded_head(fn, *args, width=16)
+    want = fn(*args)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention.padded_head_dim(160)
