@@ -26,9 +26,12 @@ in every prefill, the flash-decode kernel in every decode step.
    and ``fused_score_select`` bit for bit (``torch.equal``) on the fleet,
    a fully dense query batch and bf16 weights, the fused stage 2 also with
    rerank and live weights, through the engine's server -> tools map and
-   through the one the wrapper builds when given none (``fused_select``
-   at the mega tail's [256, 16], a dense-shard merge [256, 4 x 16] and the
-   full tool axis [256, 20010]); the attention kernels at the serving
+   through the one the wrapper builds when given none; ``fused_select``
+   bit for bit at the mega tail's [256, 16], a dense-shard merge
+   [256, 4 x 16] and the full tool axis [256, 20010], and on edge rows
+   (-0/+0 ties, all equal, all -inf, all NEG) at widths 16, 257 and 20010;
+   ``qos_scores`` on the shared and per-query windows, a [n, 63] window and
+   a view that is not 16-byte aligned; the attention kernels at the serving
    shapes (flash prefill [1, 16, S, 128] against 8 kv heads in the model's
    strided layout, flash decode of 8 slots against [8, 2048, 8, 128]
    caches with lengths 1 to 2048), bf16 and f32;
@@ -55,10 +58,13 @@ in every prefill, the flash-decode kernel in every decode step.
    end-to-end ``route_texts`` time per batch on both paths; a profile of one
    route of each path; the attention kernels at the serving shapes beside
    their plain versions and ``scaled_dot_product_attention``; BM25 (with
-   the columns its queries use and their non-zero terms), the fused stage 2
-   and the attention kernels each also as device time per call from a
-   profile (the kernel alone, without the wrapper's host work), beside the
-   library call's where there is one; the count of HGMMA (wgmma) instructions in the
+   the columns its queries use and their non-zero terms), QoS (both
+   windows), the fused stage 2, the selection (mega tail and full axis) and
+   the attention kernels each also as device time per call from a profile
+   (the kernel alone, without the wrapper's host work), beside the library
+   call's where there is one, an empty launch's, and that of one
+   ``torch.sum`` over the per-query window (a plain read of the same
+   bytes); the count of HGMMA (wgmma) instructions in the
    flash library's SASS, which must not be 0; a profile of one 1536-token
    prefill and one 8-slot decode step of internlm2-1.8b.
 
@@ -407,7 +413,17 @@ def main(rehearse: bool) -> None:
             f"{w_s.shape[1]}] bit-equal to the plain version: {', '.join(bm25_cases)}")
         e1 = close(ops.qos_scores(lat_t), network_score(lat_t), "qos_scores shared window")
         e2 = close(ops.qos_scores(flat), network_score(flat), "qos_scores per-query window")
-        max_err["qos_scores"] = max(e1, e2)
+        # edge windows: T % 4 != 0 (scalar loads), and a view one element
+        # into its storage (not 16-byte aligned: scalar loads)
+        lat63 = lat_t[:, 1:].contiguous()
+        e3 = close(ops.qos_scores(lat63), network_score(lat63), "qos_scores [n, 63] window")
+        shifted = torch.empty(lat_t.numel() + 1, device=dev)[1:].view(lat_t.shape)
+        shifted.copy_(lat_t)
+        e4 = close(ops.qos_scores(shifted), network_score(lat_t), "qos_scores offset view")
+        max_err["qos_scores"] = max(e1, e2, e3, e4)
+        log(f"phase 2: qos_scores within rtol {RTOL} / atol {ATOL}: shared {list(lat_t.shape)} "
+            f"{e1:.3g}, per-query {list(flat.shape)} {e2:.3g}, {list(lat63.shape)} {e3:.3g}, "
+            f"offset view {e4:.3g}")
         sync()
         _, cand_route = topk(k_s, cfg.top_s)    # i64, a slice: the form the route passes
         cand = cand_route.to(torch.int32)
@@ -511,17 +527,32 @@ def main(rehearse: bool) -> None:
         cases["full axis: bf16 operands, k 128"] = (
             (sel_full.bfloat16(), val_full.bfloat16(), tool_qos, tool_load, tool_dead),
             dict(k=128, alpha=0.5, beta=0.5, gamma=0.35, temp=1.0))
-        errs = []
+        # edge rows at the narrow tail's width, one past the narrow/wide
+        # boundary (257) and the full axis: -0/+0 ties, an all-equal row,
+        # an all -inf row, an all-NEG row; the rest tie-heavy integers
+        for n_e, k_e in ((16, 16), (257, 128), (n_t, 128)):
+            e_sel = torch.randint(0, 6, (n_q, n_e), generator=gen, device=dev).float()
+            e_sel[torch.rand((n_q, n_e), generator=gen, device=dev) < 0.3] = -float("inf")
+            pm0 = torch.where(torch.rand((n_e,), generator=gen, device=dev) < 0.5,
+                              torch.tensor(-0.0, device=dev), torch.tensor(0.0, device=dev))
+            e_sel[0] = torch.where(torch.arange(n_e, device=dev) % 3 == 0, pm0, -1.0)
+            e_sel[1], e_sel[2], e_sel[3], e_sel[4] = 2.5, -float("inf"), kref.NEG, pm0
+            cases[f"edge rows at width {n_e}: -0/+0 ties, all equal, all -inf, all NEG"] = (
+                (e_sel, e_sel, torch.rand((n_e,), generator=gen, device=dev),
+                 torch.rand((n_q, n_e), generator=gen, device=dev),
+                 (torch.rand((n_e,), generator=gen, device=dev) < 0.2).float()),
+                dict(k=k_e, alpha=0.5, beta=0.5, gamma=0.35, temp=1.0))
         for name, (a, k) in cases.items():
             got = ops.fused_select(*a, **k)
             want = kref.fused_select_ref(*a, **k)
             sync()
             if not torch.equal(got[0].cpu(), want[0].cpu()):
                 fail(f"fused_select {name}: decisions differ from the plain version")
-            errs += [close(g, w, f"fused_select {name}") for g, w in zip(got[1:], want[1:])]
+            for g, w, out in zip(got[1:], want[1:], ("C", "N", "S")):
+                equal(g, w, f"fused_select [{name}] {out}")
             log(f"phase 2: fused_select [{name}] {list(a[0].shape)} k {k['k']}: decisions "
-                f"equal, max abs err {max(errs[-3:])}")
-        max_err["fused_select"] = max(errs)
+                "equal, C, N, S bit-equal to the plain version")
+        max_err["fused_select"] = 0.0
 
         # the attention kernels at the serving path's shapes: flash prefill of
         # 16 query heads against 8 kv heads, head_dim 128, causal, in the
@@ -973,33 +1004,52 @@ def main(rehearse: bool) -> None:
         # that the CUDA-event window includes when the host is the slower
         # side; the same for the library call beside each, where there is one
         if dev.type == "cuda":
-            calls = {     # name -> (the kernel's call, the library call beside it or None)
-                "bm25_scores": (lambda: ops.bm25_scores(q_s, w_st),
-                                lambda: torch.matmul(q_s, w_st)),
-                "fused_score_select": (fused_call, None),
-                "flash_attention": (lambda: ops.flash_attention(qf, kf, vf),
-                                    lambda: sdpa(qf, kf, vf, is_causal=True, enable_gqa=True)),
-                "decode_attention": (lambda: ops.decode_attention(qd, kt, vt, full),
-                                     lambda: sdpa(qd[:, :, None], kt, vt, enable_gqa=True)),
-            }
+            by_name = {r["name"]: r for r in rows}
+            calls = [     # (name, shape, window ms, the kernel's call, the library call or None)
+                ("bm25_scores", by_name["bm25_scores"]["shape"], by_name["bm25_scores"]["ms"],
+                 lambda: ops.bm25_scores(q_s, w_st), lambda: torch.matmul(q_s, w_st)),
+                ("qos_scores", by_name["qos_scores"]["shape"], by_name["qos_scores"]["ms"],
+                 lambda: ops.qos_scores(lat_t), None),
+                ("qos_scores", f"per-query [{flat.shape[0]}, {T}]", perq["ms"],
+                 lambda: ops.qos_scores(flat), None),
+                ("fused_score_select", by_name["fused_score_select"]["shape"],
+                 by_name["fused_score_select"]["ms"], fused_call, None),
+                ("fused_select", by_name["fused_select"]["shape"], by_name["fused_select"]["ms"],
+                 lambda: ops.fused_select(*sa, **sk), None),
+                ("fused_select", f"full axis {list(wa[0].shape)} k {wk['k']}", wide_sel["ms"],
+                 lambda: ops.fused_select(*wa, **wk), None),
+                ("flash_attention", by_name["flash_attention"]["shape"],
+                 by_name["flash_attention"]["ms"], lambda: ops.flash_attention(qf, kf, vf),
+                 lambda: sdpa(qf, kf, vf, is_causal=True, enable_gqa=True)),
+                ("decode_attention", by_name["decode_attention"]["shape"],
+                 by_name["decode_attention"]["ms"], lambda: ops.decode_attention(qd, kt, vt, full),
+                 lambda: sdpa(qd[:, :, None], kt, vt, enable_gqa=True)),
+            ]
 
             def per_call(d):
                 return f"{sum(d.values()) / 1e3:.4f} ms" if d else "not measured"
 
-            for r in rows:
-                if r["name"] not in calls:
-                    continue
-                kernel_fn, lib_fn = calls[r["name"]]
+            for name, shape, window, kernel_fn, lib_fn in calls:
                 _, per = device_us(kernel_fn, 20)
                 lib = ""
                 if lib_fn is not None:
                     _, per_lib = device_us(lib_fn, 20)
                     lib = (f"; library device time per call {per_call(per_lib)} against its "
-                           f"window {r['library_ms']:.4f} ms")
-                log(f"phase 4: {r['name']} {r['shape']}: device time per call {per_call(per)} "
+                           f"window {by_name[name]['library_ms']:.4f} ms")
+                log(f"phase 4: {name} {shape}: device time per call {per_call(per)} "
                     "(profile of 20 calls: " + "; ".join(f"{k[:40]} {v:.1f} us"
                                                           for k, v in per.items())
-                    + f") against the CUDA-event window {r['ms']:.4f} ms" + lib)
+                    + f") against the CUDA-event window {window:.4f} ms" + lib)
+            one = torch.zeros(1, device=dev)
+            _, per_empty = device_us(one.zero_, 20)
+            log(f"phase 4: an empty launch (a one-element fill): device time per call "
+                f"{per_call(per_empty)} (profile of 20 calls)")
+            # what one PyTorch reduction takes to read the per-query window:
+            # the practical floor of a kernel that reads it once
+            _, per_read = device_us(flat.sum, 20)
+            log(f"phase 4: torch.sum over the per-query window {list(flat.shape)}: device time "
+                f"per call {per_call(per_read)} (profile of 20 calls: "
+                + "; ".join(f"{k[:40]} {v:.1f} us" for k, v in per_read.items()) + ")")
             lib = _build.build_dir() / "libflash_attention.so"
             sass = subprocess.run([str(Path(_build.nvcc()).parent / "cuobjdump"), "-sass",
                                    str(lib)], capture_output=True, text=True, check=True,
@@ -1053,21 +1103,26 @@ def main(rehearse: bool) -> None:
                 f"servers, 4 shards: median {statistics.median(times):.3f} ms per batch "
                 f"(host clock, {len(times)} runs)")
 
-    def profile(what, fn):
+    def profile(what, fn, kernels=()):
         """Wall ms, device busy ms and the top device entries of one call
-        (mean of 3, after a warm-up)."""
+        (mean of 3, after a warm-up), and the entries whose names hold one
+        of ``kernels``."""
         wall, dev_us = device_us(fn, 3)
         busy = sum(dev_us.values()) / 1e3
         top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
+        named = [(k, v) for k, v in dev_us.items() if any(s in k for s in kernels)]
         log(f"phase 4: profile of {what}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
             f"({100 * busy / wall:.1f} %), top kernels (us): "
-            + "; ".join(f"{k[:48]} {v:.1f}" for k, v in top))
+            + "; ".join(f"{k[:48]} {v:.1f}" for k, v in top)
+            + ("; the repo's kernels (us): " + "; ".join(f"{k[:48]} {v:.1f}" for k, v in named)
+               if named else ""))
         return wall, busy
 
     if dev.type == "cuda":
         eng = engines["sonar"][0]
         enc0 = eng.encode(batches[0])
-        profile(f"route (sonar, encoded, {n_q} queries)", lambda: eng.route(enc0, lat))
+        routing = ("bm25_sparse", "qos_", "score_fuse", "select_")
+        profile(f"route (sonar, encoded, {n_q} queries)", lambda: eng.route(enc0, lat), routing)
         meng = mengines["sonar_ft"][0]
         menc = meng.encode(batches[0])
         mkw = mextras("sonar_ft")
@@ -1077,7 +1132,7 @@ def main(rehearse: bool) -> None:
         log(f"phase 4: peak device memory of one sharded route (sonar_ft, {n_mega} servers): "
             f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
         profile(f"sharded route (sonar_ft, encoded, {n_q} queries, {n_mega} servers, "
-                f"4 shards)", lambda: meng.route(menc, **mkw))
+                f"4 shards)", lambda: meng.route(menc, **mkw), routing)
         # the select kernel's own device time, apart from its wrapper's
         # host-side dispatch that the CUDA-event window above includes
         profile(f"fused_select call {list(sa[0].shape)} k {sk['k']}",

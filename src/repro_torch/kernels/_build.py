@@ -132,10 +132,10 @@ ROWS = ("tool_qos", "tool_load", "tool_rtt", "tool_dead", "tool_aff")
 def pack_rows(rows: dict, n_q: int, n_t: int, what: str):
     """The fused kernels' per-tool rows (``ROWS`` order; ``tool_qos``
     required, the others may be None): checked f32 CUDA tensors of shape
-    [n_t] (broadcast, stride 0) or [n_q, n_t] (per query, stride n_t),
-    packed as ctypes arrays of pointers and strides for the C interface."""
-    ptrs = (ctypes.c_void_p * len(ROWS))()
-    strides = (ctypes.c_longlong * len(ROWS))()
+    [n_t] (broadcast, stride 0) or [n_q, n_t] (per query, stride n_t).
+    Returns two lists, the device addresses (None when absent) and the
+    strides, for the C interface."""
+    ptrs, strides = [None] * len(ROWS), [0] * len(ROWS)
     for j, name in enumerate(ROWS):
         t = rows.get(name)
         if t is None:

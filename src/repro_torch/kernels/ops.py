@@ -137,7 +137,7 @@ def fused_select(
             tool_aff=tool_aff, eps=eps,
         )
     weights, live = _live_weights(alpha, beta, gamma, delta, sel_scores.device)
-    sel = torch.clamp_min(sel_scores.to(torch.float32), kref.NEG).contiguous()
+    sel = sel_scores.to(torch.float32).contiguous()       # the kernel clamps to NEG
     if val_scores.dtype != torch.bfloat16:
         val_scores = val_scores.to(torch.float32)
     return _sel.fused_select_cuda(

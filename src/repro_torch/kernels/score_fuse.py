@@ -113,7 +113,7 @@ def fused_score_select_cuda(
         q.data_ptr(), None if q_rerank is None else q_rerank.data_ptr(),
         int(q.dtype == torch.bfloat16), w.data_ptr(), int(w.dtype == torch.bfloat16),
         tools.data_ptr(), offsets.data_ptr(), cand.data_ptr(),
-        ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(strides, ctypes.c_void_p),
+        (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_longlong * len(strides))(*strides),
         wl,
         float(alpha), float(beta), float(gamma), float(delta), float(eps),
         int(rows.get("tool_aff") is not None), float(temp),

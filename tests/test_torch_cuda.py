@@ -38,7 +38,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import decode_splits
 from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.kernels import ref as kref
-from repro_torch.kernels import score_fuse
+from repro_torch.kernels import qos_score, score_fuse
 from repro_torch.traffic import mega_fleet_index
 
 RTOL, ATOL = 2e-6, 2e-7
@@ -227,15 +227,43 @@ def test_reduced_qwen2_serves_on_the_kernel_path(cuda):
     assert served["pallas"] == served["naive"]
 
 
-@pytest.mark.parametrize("T", [1, 20, 64, 200])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_qos_kernel_matches_plain(cuda, T, dtype):
-    rng = np.random.default_rng(T)
-    lat = rng.uniform(5.0, 400.0, (333, T)).astype(np.float32)
+def _qos_window(n, T, seed):
+    rng = np.random.default_rng(seed)
+    lat = rng.uniform(5.0, 400.0, (n, T)).astype(np.float32)
     lat[::5, -1] = 1200.0
     lat[1::4, -min(T, 3):] = 900.0
-    x = torch.from_numpy(lat).to(cuda).to(dtype)
+    lat[2::7, :] = 1000.0                      # the offline clamp's edge, equal samples
+    return lat
+
+
+@pytest.mark.parametrize("T", [1, 3, 20, 63, 64, 65, 200, 256, 257, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qos_kernel_matches_plain(cuda, T, dtype):
+    """Scalar and 16-byte loads, rows kept in registers (T <= 256) or
+    streamed, the weight table and the per-sample weights (T > 1024); 333
+    rows, not a multiple of any plan's rows per block."""
+    x = torch.from_numpy(_qos_window(333, T, T)).to(cuda).to(dtype)
     torch.testing.assert_close(ops.qos_scores(x), qos.network_score(x), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("T", [3, 64, 256, 257, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qos_kernel_offset_views(cuda, T, dtype):
+    """A contiguous view that starts one element into its storage (not 16-byte
+    aligned) takes scalar loads and agrees with the plain version, as does
+    the flattened per-query window of the engines."""
+    n = 131
+    lat = torch.from_numpy(_qos_window(n, T, T + 1)).to(cuda).to(dtype)
+    buf = torch.empty(n * T + 1, dtype=dtype, device=cuda)
+    view = buf[1:].view(n, T)
+    view.copy_(lat)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    assert qos_score.launch_plan(T, dtype, view.data_ptr(), n).vec == 1
+    torch.testing.assert_close(ops.qos_scores(view), qos.network_score(lat), rtol=RTOL,
+                               atol=ATOL)
+    perq = torch.stack([lat, lat.flip(0)]).reshape(2 * n, T)
+    torch.testing.assert_close(ops.qos_scores(perq), qos.network_score(perq), rtol=RTOL,
+                               atol=ATOL)
 
 
 @pytest.mark.parametrize("variant", ["broadcast", "per_query", "bf16", "rerank_live_aff",
@@ -374,6 +402,68 @@ def test_select_kernel_matches_plain(cuda, variant):
             torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
         else:
             assert torch.equal(a, b), variant
+
+
+@pytest.mark.parametrize("T", [4, 64, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qos_ring_mode_matches_plain(cuda, T, dtype):
+    """Windows of RING_MIN_ROWS rows or more take the cp.async ring (the
+    per-query step's path): a last tile of 17 rows, one lane per row at
+    T = 4, the plain version's scores within the tolerance."""
+    n = qos_score.RING_MIN_ROWS + 32 * 5 + 17
+    x = torch.from_numpy(_qos_window(n, T, T + 2)).to(cuda).to(dtype)
+    if dtype == torch.bfloat16 and T == 4:
+        x = torch.cat([x, x], dim=1)                  # bf16 rows of 16 bytes
+    assert qos_score.launch_plan(x.shape[1], dtype, x.data_ptr(), n).mode == "ring"
+    torch.testing.assert_close(ops.qos_scores(x), qos.network_score(x), rtol=RTOL, atol=ATOL)
+
+
+def _edge_select_rows(g, n_q, n_t, dev):
+    """Tie-heavy integer scores with -inf entries, and edge rows: -0/+0 ties
+    above negatives, an all-equal row, an all -inf row, an all-NEG row, a
+    row of -0/+0 only, and three sparse rows."""
+    sel = torch.randint(0, 6, (n_q, n_t), generator=g, device=dev).float()
+    sel = torch.where(torch.rand((n_q, n_t), generator=g, device=dev) < 0.3, -float("inf"), sel)
+    signs = torch.rand((n_t,), generator=g, device=dev) < 0.5
+    zeros = torch.where(signs, torch.tensor(-0.0, device=dev), torch.tensor(0.0, device=dev))
+    sel[0] = torch.where(torch.arange(n_t, device=dev) % 3 == 0, zeros, sel[0].clamp_max(-1.0))
+    sel[1] = 2.5
+    sel[2] = -float("inf")
+    sel[3] = kref.NEG
+    sel[4] = zeros
+    # sparse rows, as on the full tool axis: 20, 200 and 300 scored entries
+    # (fewer than k, at most 256 collected, more: the wide kernel's three ways)
+    for row, n_valid in ((5, 20), (6, 200), (7, 300)):
+        keep = torch.randperm(n_t, generator=g, device=dev)[:n_valid]
+        sparse = torch.full((n_t,), -float("inf"), device=dev)
+        sparse[keep] = sel[row, keep].clamp_min(0.0)
+        sel[row] = sparse
+    return sel
+
+
+@pytest.mark.parametrize("n_t,k", [(n, k) for n in (1, 16, 31, 32, 33, 255, 256, 257, 20010,
+                                                       60000)
+                                     for k in (1, 16, 128) if k <= n])
+def test_select_kernel_widths_and_edge_rows(cuda, n_t, k):
+    """Both regimes (a warp per narrow row up to 256, a block per wide row;
+    staged in shared memory up to 54,016 entries) and their boundaries,
+    against the plain version, bit for bit at temperature 1, on the edge
+    rows; also with bf16 values and per-query rows."""
+    n_q = 37
+    g = torch.Generator(device=cuda).manual_seed(n_t + k)
+    sel = _edge_select_rows(g, n_q, n_t, cuda)
+    val = torch.rand((n_q, n_t), generator=g, device=cuda) * 4
+    val[1] = 1.0
+    dead = (torch.rand((n_q, n_t), generator=g, device=cuda) < 0.2).float()
+    kw = dict(k=k, alpha=0.6, beta=0.3, gamma=0.2, delta=0.1,
+              tool_rtt=torch.rand((n_t,), generator=g, device=cuda))
+    for args in ((sel, sel, torch.rand((n_t,), generator=g, device=cuda) * 2 - 1),
+                 (sel, val.bfloat16(), torch.rand((n_q, n_t), generator=g, device=cuda),
+                  torch.rand((n_t,), generator=g, device=cuda), dead)):
+        got = ops.fused_select(*args, **kw)
+        want = kref.fused_select_ref(*args, **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (n_t, k)
 
 
 def test_sharded_kernel_path_equals_plain_path(cuda):

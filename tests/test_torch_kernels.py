@@ -258,9 +258,10 @@ def test_tool_csr_walk_matches_candidate_mask(order):
             assert np.all(np.diff(seg) > 0) and np.all(ts[seg] == c)
 
 
-def test_qos_scores_dispatches_to_plain_on_cpu():
+@pytest.mark.parametrize("T", [1, 3, 45, 65])
+def test_qos_scores_dispatches_to_plain_on_cpu(T):
     rng = np.random.default_rng(10)
-    lat = rng.uniform(5, 1200, (37, 45)).astype(np.float32)
+    lat = rng.uniform(5, 1200, (37, T)).astype(np.float32)
     got = ops.qos_scores(_t(lat)).numpy()
     assert np.array_equal(got, qos.network_score(_t(lat)).numpy())
     np.testing.assert_allclose(got, np.asarray(jops.qos_scores(lat, interpret=True)),
@@ -345,6 +346,110 @@ def test_qos_kernel_constants():
     x = np.arange(20, dtype=np.float32) - 19 + (20 - 1) / 2.0
     assert vals[16] == float(np.sum(x * x))
     assert vals[5] == float(np.float32(0.7 ** 20))
+
+
+@pytest.mark.parametrize("T,dtype,misaligned,vec", [
+    (64, torch.float32, False, 4), (64, torch.float32, True, 1), (63, torch.float32, False, 1),
+    (4, torch.float32, False, 4), (64, torch.bfloat16, False, 8), (60, torch.bfloat16, False, 1),
+    (64, torch.bfloat16, True, 1), (2048, torch.float32, False, 4),
+])
+def test_qos_launch_plan_vector_width(T, dtype, misaligned, vec):
+    """16-byte loads only where T keeps every row 16-byte aligned and the
+    base address is (an offset view may not be)."""
+    ptr = 0x7F00_0000_0000 + (4 if misaligned else 0)
+    assert qos_score.launch_plan(T, dtype, ptr, 10_005).vec == vec
+
+
+@pytest.mark.parametrize("T,group,mode", [
+    (1, 1, "registers"), (16, 1, "ring"), (17, 2, "registers"), (63, 4, "registers"),
+    (64, 4, "ring"), (65, 8, "registers"), (256, 16, "ring"), (257, 32, "stream"),
+    (2048, 32, "stream"),
+])
+def test_qos_launch_plan_regimes(T, group, mode):
+    """Lanes per row: the fewest that read at most 16 samples each; rows up
+    to 256 samples are read once (the ring for large windows with 16-byte
+    loads), longer ones streamed."""
+    n = qos_score.RING_MIN_ROWS
+    plan = qos_score.launch_plan(T, torch.float32, 0, n)
+    assert (plan.group, plan.mode) == (group, mode)
+    assert plan.group & (plan.group - 1) == 0 and plan.group <= 32
+    if plan.mode != "stream":
+        assert -(-T // plan.group) <= qos_score.LANE_SAMPLES
+    small = qos_score.launch_plan(T, torch.float32, 0, n - 1)
+    assert small.mode == ("registers" if mode == "ring" else mode)
+
+
+@pytest.mark.parametrize("n_t,per_lane,staged", [
+    (1, 1, False), (32, 1, False), (33, 2, False), (64, 2, False), (65, 4, False),
+    (128, 4, False), (129, 8, False), (256, 8, False), (257, 0, True), (20_010, 0, True),
+    (54_016, 0, True), (54_017, 0, False), (60_000, 0, False),
+])
+def test_select_launch_plan_regimes(n_t, per_lane, staged):
+    """Narrow rows (up to 256) to a warp with 32 * per_lane >= n_t keys;
+    wider rows to a block, staged in shared memory while the keys fit."""
+    plan = select_fuse.launch_plan(n_t)
+    assert (plan.per_lane, plan.staged) == (per_lane, staged)
+    assert (plan.per_lane > 0) == (n_t <= select_fuse.NARROW_MAX)
+    if plan.per_lane:
+        assert 32 * plan.per_lane >= n_t > 32 * plan.per_lane // 2 or n_t <= 32
+    assert plan.dyn_smem == (4 * n_t if staged else 0)
+
+
+def test_select_launch_plan_shared_memory_bound():
+    """No plan asks for more dynamic shared memory than a block may hold
+    beside the kernel's static arrays (232,448 bytes on the H100)."""
+    for n_t in list(range(1, 600)) + list(range(20_000, 60_001, 977)) + [54_016, 54_017]:
+        plan = select_fuse.launch_plan(n_t)
+        assert plan.dyn_smem <= select_fuse.WIDE_DYN_MAX
+        assert plan.dyn_smem + 16_384 <= 232_448
+
+
+def _zero_ties(rng, n_q, n_t):
+    sel = np.where(rng.random((n_q, n_t)) < 0.5, -0.0, 0.0).astype(np.float32)
+    sel[:, ::7] = -1.0
+    return sel
+
+
+@pytest.mark.parametrize("case", ["all_equal", "all_neg", "all_inf", "k_equals_n_t"])
+def test_fused_select_edge_rows_match_reference(case):
+    """Rows the ranking must break by index alone, against the reference's
+    Pallas kernel (interpret mode) and its oracle."""
+    rng = np.random.default_rng(len(case))
+    n_q, n_t, k = 5, 40, 8
+    if case == "all_equal":
+        sel = np.full((n_q, n_t), 2.5, np.float32)
+    elif case == "all_neg":
+        sel = np.full((n_q, n_t), kref.NEG, np.float32)
+    elif case == "all_inf":
+        sel = np.full((n_q, n_t), -np.inf, np.float32)
+    else:
+        sel = rng.integers(0, 4, (n_q, n_t)).astype(np.float32)
+        sel[rng.random((n_q, n_t)) < 0.3] = -np.inf
+        k = n_t
+    val = rng.random((n_q, n_t)).astype(np.float32)
+    _select_both(sel, val, rng.uniform(-1, 1, n_t).astype(np.float32),
+                 load=rng.random(n_t).astype(np.float32), k=k, gamma=0.3)
+
+
+def test_fused_select_signed_zero_ties():
+    """-0 and +0 tie and the lower index wins, as in the reference's Pallas
+    kernel (interpret mode), torch's stable sort and the scalar router's
+    stable argsort.  The reference's oracle ranks with lax.top_k, which puts
+    +0 above -0; it agrees once every -0 is written as +0."""
+    rng = np.random.default_rng(4)
+    n_q, n_t = 6, 40
+    sel = _zero_ties(rng, n_q, n_t)
+    val = rng.random((n_q, n_t)).astype(np.float32)
+    qos_row = rng.uniform(-1, 1, n_t).astype(np.float32)
+    kw = dict(k=8, alpha=0.5, beta=0.5)
+    got = ops.fused_select(_t(sel), _t(val), _t(qos_row), **kw)
+    jargs = (jnp.asarray(sel), jnp.asarray(val), jnp.asarray(qos_row))
+    _check(got, jops.fused_select(*jargs, interpret=True, **kw), "vs pallas")
+    plus = sel + np.float32(0.0)                      # -0 -> +0
+    assert not np.signbit(plus[plus == 0]).any()
+    _check(got, jref.fused_select_ref(jnp.asarray(plus), *jargs[1:], **kw), "vs oracle, +0")
+    assert not np.array_equal(np.asarray(jref.fused_select_ref(*jargs, **kw)[0]),
+                              got[0].numpy())
 
 
 # ---------------------------------------------------------------------------
