@@ -17,7 +17,10 @@ template-tiled million-server fleet with bf16 weights and compact telemetry
 16 requests through internlm2-1.8b at full width and depth (24 layers,
 d_model 2048, 16/8 heads, vocab 92672, bf16, random weights drawn on the
 card from a seed) with ``attn_impl="pallas"``: the flash-attention kernel
-in every prefill, the flash-decode kernel in every decode step.
+in every prefill, the flash-decode kernel in every decode step.  Above the
+engines, the paper harness (``BatchAgent(NetMCPPlatform(...), engine)
+.run_benchmark(...)``) and the serving gateway (``MicroBatchPump(
+SonarGateway(...)).replay(...)``) run at the 10,005-server fleet's size.
 
 1. set-up: TF32 off, the card's name and power limit, both fleets, the
    queries and seeded telemetry;
@@ -53,6 +56,21 @@ in every prefill, the flash-decode kernel in every decode step.
    plain-path engine (``attn_impl="chunked"``, no kernel) on the same
    weights: every first token equal, every prefill and decode row of logits
    within ``SERVE_TOL``, and every argmax that differs within it too;
+3d. the paper harness with the counters set to 0 before each part: (a)
+   the paper's pool (15 servers, 120 queries, 60 ticks a query, platform
+   seed 1, traces drawn on the card), Table II's grid (PRAG, SONAR,
+   hybrid) and Fig. 7's four algorithms (ideal) through ``BatchAgent``,
+   Table II's headline and Fig. 7's ranking checked; (b) PRAG, SONAR and
+   SONAR-FT episodes of 256 tasks over the 10,005-server fleet on 24 h
+   hybrid traces, per-query ``[256, 10005, 64]`` windows; every turn's
+   decisions and every record of the kernel path equal to the plain
+   path's, the launches one BM25, one fused stage 2 and (network-aware)
+   one per-query QoS per turn;
+3e. the gateway with the counters set to 0: a seeded Poisson schedule
+   through the ``MicroBatchPump`` (padded flushes, a fixed service time)
+   over a ``SonarGateway`` of 10,005 replicas, SONAR and SONAR-LB, with
+   ``shards=None`` and ``shards=4`` (the device ring, the fused
+   selection); picks, results and end state equal to the plain path's;
 4. times: each kernel's median over CUDA-event-timed launches beside its
    plain version, one library call where there is one, and its bound; the
    end-to-end ``route_texts`` time per batch on both paths; a profile of one
@@ -66,7 +84,10 @@ in every prefill, the flash-decode kernel in every decode step.
    ``torch.sum`` over the per-query window (a plain read of the same
    bytes); the count of HGMMA (wgmma) instructions in the
    flash library's SASS, which must not be 0; a profile of one 1536-token
-   prefill and one 8-slot decode step of internlm2-1.8b.
+   prefill and one 8-slot decode step of internlm2-1.8b; one
+   ``BatchAgent`` turn at 10,005 servers (the host's ``latency_windows``,
+   its copy and the route apart) and one pump flush of 32 requests on each
+   gateway, with profiles, and replays with the flush time measured.
 
 The line before the last is the ``kernels`` JSON object; the last is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
@@ -121,6 +142,27 @@ SOURCES = {
 }
 
 
+# the paper's (#filter_server, #filter_tool) grid of Table II
+# (benchmarks/common.py: FILTER_GRID)
+FILTER_GRID = ((3, 6), (4, 8), (5, 10), (6, 12))
+# the gateway's replica mix: one family per serving architecture
+REPLICA_ARCHS = (
+    ("internlm2-1.8b", "dense"), ("qwen2-7b", "dense"), ("yi-6b", "dense"),
+    ("minitron-4b", "dense"), ("deepseek-moe-16b", "moe"), ("llama4-scout-17b-a16e", "moe"),
+    ("jamba-1.5-large", "hybrid"), ("xlstm-125m", "ssm"), ("whisper-tiny", "audio"),
+    ("internvl2-1b", "vlm"),
+)
+GATEWAY_TEXTS = (
+    "generate a chat reply about weekend travel plans",
+    "transcribe this meeting recording and translate the speech",
+    "summarize this long contract document",
+    "answer a question about the chart in this image",
+    "stream a low latency completion for the editor",
+    "high throughput text generation for a batch of prompts",
+    "general purpose chat completion for a customer question",
+)
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -134,6 +176,21 @@ def setup_imports():
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         fail(f"the port's sources are missing: no {SRC / 'repro_torch'}")
     sys.path.insert(0, str(SRC))
+
+
+def record_routes(engine) -> list:
+    """Keep every `BatchDecisions` an engine's `route` returns, in order
+    (one entry per route call: per episode turn, per gateway engine call)."""
+    calls = []
+    route = engine.route
+
+    def recorded(*a, **k):
+        d = route(*a, **k)
+        calls.append(d)
+        return d
+
+    engine.route = recorded
+    return calls
 
 
 def serve_requests(cfg, plain_cfg, params, dev, n_slots, cap, prompts, max_new, tol):
@@ -845,6 +902,228 @@ def main(rehearse: bool) -> None:
         f"{max(gaps, default=0.0):.4f}")
     del lm_params             # phase 4 measures the routing paths' memory without them
 
+    # ----------------------------------------------------------------- 3d
+    # the paper harness: BatchAgent episodes on NetMCPPlatform traces drawn
+    # on the card, the kernel path against the plain path on the same
+    # platform state (a fresh platform each; the traces are memoized per
+    # seed and device type, so both start equal)
+    from repro_torch.core import agent as agentlib
+    from repro_torch.core import metrics as metricslib
+    from repro_torch.core import routing as routinglib
+    from repro_torch.core.platform import NetMCPPlatform
+
+    smi_tag = smi if not rehearse else "CPU rehearsal"
+
+    def episodes(pool, pool_index, scenario, algo, cfg_, queries, use_kernels, tpq):
+        """One BatchAgent benchmark on a fresh platform: its records, the
+        decisions of every turn, the platform."""
+        plat = NetMCPPlatform(pool, scenario=scenario, seed=1, device=dev)
+        eng = make_engine(algo, pool, cfg_, device=dev, index=pool_index, use_kernels=use_kernels)
+        turns = record_routes(eng)
+        recs = agentlib.BatchAgent(plat, eng).run_benchmark(queries, ticks_per_query=tpq)
+        return recs, turns, plat
+
+    def same_episodes(kern, plain, what, n_servers):
+        (rk, tk, pk), (rp, tp, pp) = kern, plain
+        if len(tk) != len(tp):
+            fail(f"{what}: {len(tk)} turns on the kernel path, {len(tp)} on the plain path")
+        for i, (dk, dp) in enumerate(zip(tk, tp)):
+            same(dk, dp, f"{what} turn {i}", n_servers)
+        for i, (a, b) in enumerate(zip(rk, rp)):
+            if (a.query.text, a.success, a.n_calls, a.n_failures, a.call_latencies_ms,
+                    a.select_latency_ms, a.completion_ms, a.final_server_idx) != (
+                    b.query.text, b.success, b.n_calls, b.n_failures, b.call_latencies_ms,
+                    b.select_latency_ms, b.completion_ms, b.final_server_idx) \
+                    or [(d.server_idx, d.tool_idx) for d in a.decisions] != [
+                        (d.server_idx, d.tool_idx) for d in b.decisions] \
+                    or not np.isclose(a.final_expertise, b.final_expertise, rtol=RTOL, atol=ATOL):
+                fail(f"{what}: task {i}'s record differs between the kernel and plain paths")
+        if not np.array_equal(pk.observed, pp.observed):
+            fail(f"{what}: the feed-forward histories differ between the kernel and plain paths")
+
+    def episode_launches(algo, n_routes):
+        net = routinglib.algorithm(algo).uses_network
+        return {"bm25_scores": n_routes, "fused_score_select": n_routes,
+                "qos_scores": n_routes * int(net)}
+
+    def check_launches(got, want, what):
+        if rehearse:
+            return
+        for name in ops.launch_counts():
+            if want.get(name, 0) and got[name] == 0:
+                fail(f"{name}: {what} never launched its kernel")
+            if got[name] != want.get(name, 0):
+                fail(f"{name}: {got[name]} launches on {what}, expected {want.get(name, 0)}")
+
+    # (a) the paper's own pool (benchmarks/common.py): 15 servers, 120
+    # queries, 60 ticks a query, platform seed 1; Table II's grid on the
+    # hybrid scenario, Fig. 7's four algorithms on the ideal one
+    pool = dataset.build_server_pool(seed=0)
+    pool_index = ToolIndex(pool)
+    pq = dataset.build_query_dataset(n=120, seed=0)
+    paper_runs = [("hybrid", a, RoutingConfig(top_s=ts, top_k=tk, alpha=0.5, beta=0.5))
+                  for ts, tk in FILTER_GRID for a in ("prag", "sonar")]
+    paper_runs += [("ideal", a, RoutingConfig()) for a in ("rag", "rerank_rag", "prag", "sonar")]
+    t0 = time.perf_counter()
+    ops.reset_launches()                       # phase 3d (a)'s count starts here
+    kern = [episodes(pool, pool_index, sc_, a, c_, pq, True, 60) for sc_, a, c_ in paper_runs]
+    sync()
+    got = ops.launch_counts()                  # ... and is read here
+    want = {}
+    for (_, a, _), (_, turns, _) in zip(paper_runs, kern):
+        for k, v in episode_launches(a, len(turns)).items():
+            want[k] = want.get(k, 0) + v
+    check_launches(got, want, "the paper harness (3d a)")
+    plain = [episodes(pool, pool_index, sc_, a, c_, pq, False, 60) for sc_, a, c_ in paper_runs]
+    if ops.launch_counts() != got:
+        fail("phase 3d (a): the plain path launched a kernel")
+    reports = {}
+    for (sc_, a, c_), k, p in zip(paper_runs, kern, plain):
+        what = f"paper pool {sc_} {a} s{c_.top_s}t{c_.top_k}"
+        same_episodes(k, p, what, len(pool))
+        reports[sc_, a, c_.top_s, c_.top_k] = metricslib.evaluate(k[0], pool)
+    log(f"phase 3d (a): {len(paper_runs)} BatchAgent benchmarks of 120 tasks on the paper pool "
+        f"({len(pool)} servers, traces drawn on {dev}) in {time.perf_counter() - t0:.2f} s, every "
+        f"turn's decisions and every record equal on the kernel and plain paths; launches {got}")
+    log(f"phase 3d (a): {metricslib.Report.HEADER}")
+    for (sc_, a, s_f, t_f), r in reports.items():
+        log(f"phase 3d (a): {r.row(f'{sc_}_s{s_f}t{t_f}_{a}')}")
+        if sc_ == "hybrid" and a == "sonar" and r.fr != 0.0:
+            fail(f"Table II: SONAR's failure rate is {r.fr} % at s{s_f}t{t_f}, not 0")
+        if sc_ == "hybrid" and a == "prag" and not r.fr > 50.0:
+            fail(f"Table II: PRAG's failure rate is {r.fr} % at s{s_f}t{t_f}, not above 50 %")
+    fig7 = {a: r for (sc_, a, _, _), r in reports.items() if sc_ == "ideal"}
+    if not (fig7["rag"].ssr < 40.0 < fig7["prag"].ssr and fig7["rerank_rag"].sl_ms > 20_000
+            and fig7["prag"].sl_ms < 1_000 and fig7["sonar"].sl_ms < 1_000):
+        fail(f"Fig. 7: the ranking does not hold: { {a: r.row(a) for a, r in fig7.items()} }")
+    log("phase 3d (a): Table II holds (SONAR FR 0 %, PRAG FR > 50 % at every grid point) and "
+        "Fig. 7's ranking holds (RAG SSR < 40 < PRAG SSR, RerankRAG SL > 20 s, PRAG and SONAR "
+        "SL < 1 s)")
+    del kern, plain
+
+    # (b) the single engine's fleet: the hybrid scenario over 10,005
+    # servers at the 24 h horizon ([n, 8640] f32 traces drawn on the card),
+    # 256 tasks spread over the day (32 ticks apart), 8 turns at most,
+    # per-query windows [256, n, 64] every turn
+    fq = dataset.build_query_dataset(n=n_q, seed=1)
+    t0 = time.perf_counter()
+    NetMCPPlatform(servers, scenario="hybrid", seed=1, device=dev)
+    sync()
+    log(f"phase 3d (b): hybrid traces [{n_s}, 8640] f32 drawn on {dev} in "
+        f"{time.perf_counter() - t0:.2f} s [{smi_tag}]")
+    ops.reset_launches()                       # phase 3d (b)'s count starts here
+    want, seen = {}, ops.launch_counts()
+    for algo in ("prag", "sonar", "sonar_ft"):
+        t0 = time.perf_counter()
+        k = episodes(servers, index, "hybrid", algo, cfg, fq, True, 32)
+        sync()
+        t_k = time.perf_counter() - t0
+        for name, v in episode_launches(algo, len(k[1])).items():
+            want[name] = want.get(name, 0) + v
+        seen = ops.launch_counts()
+        t0 = time.perf_counter()
+        p = episodes(servers, index, "hybrid", algo, cfg, fq, False, 32)
+        t_p = time.perf_counter() - t0
+        if ops.launch_counts() != seen:
+            fail("phase 3d (b): the plain path launched a kernel")
+        same_episodes(k, p, f"fleet {algo}", n_s)
+        r = metricslib.evaluate(k[0], servers)
+        log(f"phase 3d (b): {algo}: {len(k[1])} turns over {n_q} tasks, kernel path "
+            f"{t_k:.2f} s, plain path {t_p:.2f} s (host clock) [{smi_tag}]; "
+            f"{r.row(f'fleet_hybrid_{algo}')}")
+        del k, p
+    check_launches(seen, want, "the 10,005-server episodes (3d b)")
+    log(f"phase 3d (b): every turn's decisions and every record equal on the kernel and plain "
+        f"paths; launches {seen}")
+
+    # ----------------------------------------------------------------- 3e
+    # the gateway: SonarGateway over 10,005 replicas (network profiles from
+    # a 16-template palette, Knuth-strided), a seeded Poisson schedule
+    # replayed by the MicroBatchPump with padded flushes; the service time
+    # on the virtual clock is fixed, so the kernel and plain paths see the
+    # same flush partitions
+    from repro_torch.core.batch_routing import BatchRoutingEngine
+    from repro_torch.core.mesh_routing import ShardedRoutingEngine
+    from repro_torch.serving import BatchingPolicy, MicroBatchPump, SonarGateway, replica_pool
+    from repro_torch.traffic import request_schedule, telemetry_palette
+
+    replicas = replica_pool([REPLICA_ARCHS[i % len(REPLICA_ARCHS)] for i in range(n_s)])
+    palette = telemetry_palette(16, seed=0)
+    rep_profiles = [palette[j] for j in (np.arange(n_s, dtype=np.int64) * 2654435761) % 16]
+    sched = request_schedule("poisson", torch.Generator(device=dev).manual_seed(5),
+                             2500.0, 0.2 if not rehearse else 0.02, list(GATEWAY_TEXTS),
+                             deadline_ms=20.0)
+    policy = BatchingPolicy(max_batch=32, max_wait_ms=2.0, slack_ms=0.5, pad_batches=True)
+
+    def gateway(algo, shards, use_kernels):
+        gw = SonarGateway(replicas, profiles=rep_profiles, algo=algo, seed=0, use_kernels=True,
+                          shards=shards, device=dev)
+        if not use_kernels:       # the same engine on the plain path
+            idx_ = gw.router.index
+            gw._engine = (
+                ShardedRoutingEngine(replicas, gw.router.cfg, algo=gw.algo, n_shards=shards,
+                                     index=idx_, device=dev, use_kernels=False)
+                if shards else
+                BatchRoutingEngine(replicas, gw.router.cfg, algo=gw.algo, index=idx_, device=dev,
+                                   use_kernels=False))
+        return gw, record_routes(gw.engine())
+
+    def replay(algo, shards, use_kernels):
+        gw, calls = gateway(algo, shards, use_kernels)
+        pump = MicroBatchPump(gw, policy, service_ms=lambda texts: 1.0)
+        return gw, calls, pump, pump.replay(sched)
+
+    t0 = time.perf_counter()
+    gateway("sonar", None, True)
+    sync()
+    log(f"phase 3e: {n_s} replicas, traces [{n_s}, 8640] f32 drawn on {dev}, gateway built in "
+        f"{time.perf_counter() - t0:.2f} s; schedule of {len(sched)} requests [{smi_tag}]")
+    ops.reset_launches()                       # phase 3e's count starts here
+    want, seen = {}, ops.launch_counts()
+    for algo in ("sonar", "sonar_lb"):
+        for shards in (None, 4):
+            t0 = time.perf_counter()
+            gk, ck, pk, rk = replay(algo, shards, True)
+            sync()
+            t_k = time.perf_counter() - t0
+            n_calls = len(ck)
+            per = ({"bm25_scores": 2 * n_calls, "qos_scores": n_calls, "fused_select": n_calls}
+                   if shards else
+                   {"bm25_scores": n_calls, "qos_scores": n_calls, "fused_score_select": n_calls})
+            for name, v in per.items():
+                want[name] = want.get(name, 0) + v
+            seen = ops.launch_counts()
+            gp, cp, pp, rp = replay(algo, shards, False)
+            if ops.launch_counts() != seen:
+                fail("phase 3e: the plain path launched a kernel")
+            what = f"gateway {algo} shards={shards}"
+            if [[r.rid for r in b] for b in pk.flush_log] != [[r.rid for r in b]
+                                                              for b in pp.flush_log]:
+                fail(f"{what}: the flush partitions differ")
+            if len(ck) != len(cp):
+                fail(f"{what}: {len(ck)} engine calls against {len(cp)}")
+            for i, (dk, dp) in enumerate(zip(ck, cp)):
+                same(dk, dp, f"{what} engine call {i}", n_s)
+            if [dataclasses.asdict(r) for r in rk.results] != [dataclasses.asdict(r)
+                                                                 for r in rp.results]:
+                fail(f"{what}: the served results differ between the kernel and plain paths")
+            for f in ("in_flight", "fail_streak", "ejected", "telemetry"):
+                if not np.array_equal(getattr(gk, f), getattr(gp, f)):
+                    fail(f"{what}: the gateway's {f} differs between the kernel and plain paths")
+            if gk.t != gp.t or gk.report() != gp.report():
+                fail(f"{what}: the gateway's report differs: {gk.report()} vs {gp.report()}")
+            if rk.n_routed == 0 or not np.all(np.isfinite(gk.telemetry)):
+                fail(f"{what}: nothing routed, or non-finite telemetry")
+            rpt = gk.report()
+            log(f"phase 3e: {what}: {rk.n_offered} offered, {rk.n_routed} routed, {rk.n_shed} "
+                f"shed, {rk.n_expired} expired in {rk.n_flushes} flushes ({n_calls} engine "
+                f"calls, mean batch {rk.mean_batch:.2f}); failure rate "
+                f"{rpt['failure_rate']:.4f}, AL {rpt['al_ms']:.2f} ms, ejections "
+                f"{rpt['ejections']:.0f}; kernel-path replay {t_k:.2f} s (host clock) "
+                f"[{smi_tag}]; picks and end state equal to the plain path's")
+    check_launches(seen, want, "the gateway (3e)")
+    log(f"phase 3e: launches {seen}")
+
     # ------------------------------------------------------------------ 4
     def timed(fn, n=reps):
         """Median ms of ``n`` calls after two warm-up calls (CUDA events on the card)."""
@@ -885,7 +1164,7 @@ def main(rehearse: bool) -> None:
                     fn()
                 sync()
                 wall = (time.perf_counter() - t) * 1e3 / n
-            per, whole = {}, True
+            per, whole, counts = {}, True, {}
             for ev in prof.key_averages():
                 if ev.device_type != torch.autograd.DeviceType.CUDA \
                         or getattr(ev, "is_user_annotation", False) \
@@ -895,10 +1174,12 @@ def main(rehearse: bool) -> None:
                     or getattr(ev, "self_cuda_time_total", 0)
                 if d:
                     per[ev.key] = d / n
+                    counts[ev.key[:40]] = ev.count
                     whole = whole and ev.count % n == 0
             if per and whole:
                 break
             per = {}
+        device_us.refused = counts      # the last attempt's records per entry, for the log
         return wall, per
 
     def bound(n_bytes, n_ops, ops_per_s=FP32_OPS_PER_S):
@@ -1103,11 +1384,16 @@ def main(rehearse: bool) -> None:
                 f"servers, 4 shards: median {statistics.median(times):.3f} ms per batch "
                 f"(host clock, {len(times)} runs)")
 
-    def profile(what, fn, kernels=()):
+    def profile(what, fn, kernels=(), calls=3):
         """Wall ms, device busy ms and the top device entries of one call
-        (mean of 3, after a warm-up), and the entries whose names hold one
-        of ``kernels``."""
-        wall, dev_us = device_us(fn, 3)
+        (mean of ``calls``, after a warm-up), and the entries whose names
+        hold one of ``kernels``.  With ``calls=1`` a profile missing some
+        records cannot be told from a whole one."""
+        wall, dev_us = device_us(fn, calls)
+        if not dev_us:
+            log(f"phase 4: profile of {what}: not measured (wall {wall:.3f} ms; the tracer's "
+                f"records per entry in its last attempt: {device_us.refused})")
+            return wall, None
         busy = sum(dev_us.values()) / 1e3
         top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
         named = [(k, v) for k, v in dev_us.items() if any(s in k for s in kernels)]
@@ -1138,6 +1424,66 @@ def main(rehearse: bool) -> None:
         profile(f"fused_select call {list(sa[0].shape)} k {sk['k']}",
                 lambda: ops.fused_select(*sa, **sk))
 
+    # the paper harness and the gateway on the card: one BatchAgent turn at
+    # the fleet's size (per-query windows gathered on the host, copied to
+    # the card, routed) and one pump flush, with the host's share of each
+    def host_ms(fn, n):
+        """Median host-clock ms of ``n`` calls, each ended by a synchronise."""
+        out = []
+        for _ in range(n):
+            sync()
+            t = time.perf_counter()
+            fn()
+            sync()
+            out.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(out)
+
+    n4 = 5 if not rehearse else 2
+    plat4 = NetMCPPlatform(servers, scenario="hybrid", seed=1, device=dev)
+    eng4 = engines["sonar"][0]
+    batch4 = eng4.encode([q.text for q in fq])
+    t_vec = agentlib.spread_start_ticks(n_q, plat4.n_steps, 8, 1, 0, 32, 0)
+    w4 = plat4.latency_windows(t_vec)
+    win_ms = host_ms(lambda: plat4.latency_windows(t_vec), n4)
+    copy_ms = host_ms(lambda: torch.as_tensor(w4).to(dev), n4)
+    route_ms = host_ms(lambda: eng4.route(batch4, w4), n4)
+    turn_ms = host_ms(lambda: eng4.route(batch4, plat4.latency_windows(t_vec)), n4)
+    log(f"phase 4: BatchAgent turn (sonar, {n_q} tasks, per-query windows [{n_q}, {n_s}, 64] "
+        f"f32, {w4.nbytes / 1e6:.0f} MB): latency_windows + route {turn_ms:.3f} ms wall "
+        f"(median of {n4}, host clock); latency_windows alone {win_ms:.3f} ms "
+        f"({100 * win_ms / turn_ms:.1f} % of the turn, host), its copy to {dev} "
+        f"{copy_ms:.3f} ms, route of the built windows {route_ms:.3f} ms [{smi_tag}]")
+    if dev.type == "cuda":
+        profile(f"BatchAgent turn (sonar, {n_q} tasks, latency_windows + route, per-query "
+                f"[{n_q}, {n_s}, 64]) [{smi_tag}]",
+                lambda: eng4.route(batch4, plat4.latency_windows(t_vec)), routing)
+    del plat4, w4
+    texts32 = [GATEWAY_TEXTS[i % len(GATEWAY_TEXTS)] for i in range(32)]
+    for algo, shards in (("sonar_lb", None), ("sonar", 4)):
+        gw4, _ = gateway(algo, shards, True)
+        pump4 = MicroBatchPump(gw4, policy)    # the service time measured per flush
+        rep4 = pump4.replay(sched)
+        busy = sorted(b for _, b in pump4.flush_times)
+        ph = np.mean([[d for _, d in f] for f in pump4.flush_phases], axis=0)
+        log(f"phase 4: pump replay (gateway {algo} shards={shards}, flush time measured): "
+            f"{rep4.n_routed} routed in {rep4.n_flushes} flushes, mean batch "
+            f"{rep4.mean_batch:.2f}; flush wall median {statistics.median(busy):.3f} ms, max "
+            f"{busy[-1]:.3f} ms (host clock), mean encode / dispatch / merge {ph[0]:.3f} / "
+            f"{ph[1]:.3f} / {ph[2]:.3f} ms; on the virtual clock {rep4.sustained_qps:.1f} "
+            f"req/s, serve p50 {rep4.p50_ms:.3f} ms, p99 {rep4.p99_ms:.3f} ms [{smi_tag}]")
+        flush_ms = host_ms(lambda: gw4.route_batch(texts32, pad_to=32), n4)
+        ph = dict(gw4.last_flush_phases)
+        log(f"phase 4: one flush of 32 requests (gateway {algo} shards={shards}): "
+            f"{flush_ms:.3f} ms wall (median of {n4}, host clock); last one's encode / dispatch "
+            f"/ merge {ph['encode']:.3f} / {ph['dispatch']:.3f} / {ph['merge']:.3f} ms "
+            f"[{smi_tag}]")
+        if dev.type == "cuda":
+            # one flush a profile: profiles of three flushes never held a
+            # whole multiple of three records per entry (PERF.md §7)
+            profile(f"one pump flush of 32 requests (gateway {algo} shards={shards}) "
+                    f"[{smi_tag}]", lambda: gw4.route_batch(texts32, pad_to=32), routing,
+                    calls=1)
+
     # the serving path's two calls at internlm2-1.8b's full width: one
     # prefill of 1536 tokens, one decode step of 8 slots at cache_len 1536
     # (the weights drawn again from the same seed)
@@ -1152,9 +1498,12 @@ def main(rehearse: bool) -> None:
                                      lambda: lm.prefill(lm_params, {"tokens": t1536}))
         dec_wall, dec_busy = profile("decode step of 8 slots at cache_len 1536 (internlm2-1.8b)",
                                      lambda: lm.decode_step(lm_params, cache8, tok8, 1536))
+        def ms(x):
+            return "not measured" if x is None else f"{x:.3f} ms"
+
         log(f"phase 4: serving: prefill 1536 tokens {pre_wall:.3f} ms wall "
-            f"({pre_busy:.3f} ms device); decode step of 8 slots {dec_wall:.3f} ms wall "
-            f"({dec_busy:.3f} ms device, {8e3 / dec_wall:.1f} tokens/s at 8 slots); peak device "
+            f"({ms(pre_busy)} device); decode step of 8 slots {dec_wall:.3f} ms wall "
+            f"({ms(dec_busy)} device, {8e3 / dec_wall:.1f} tokens/s at 8 slots); peak device "
             f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
     kernels = [

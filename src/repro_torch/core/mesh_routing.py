@@ -53,7 +53,12 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import adaptive as _adaptive
 from repro_torch.core import bm25, quantize, routing
-from repro_torch.core.batch_routing import BatchDecisions, EncodedBatch, encode_for_index
+from repro_torch.core.batch_routing import (
+    BatchDecisions,
+    EncodedBatch,
+    check_route_stats,
+    encode_for_index,
+)
 from repro_torch.core.bm25 import topk
 from repro_torch.core.dataset import Server
 from repro_torch.core.qos import (
@@ -80,10 +85,6 @@ _F32 = torch.float32
 MESH_NOT_PORTED = (
     "repro_torch: the shard_map mesh path has no target on one card; "
     "pass mesh=None (or 'auto') to run the shard-stacked engine"
-)
-ROUTE_STATS_NOT_PORTED = (
-    "repro_torch: route_stats (device route statistics) comes with the "
-    "observability slice of the port"
 )
 
 
@@ -752,6 +753,7 @@ class ShardedRoutingEngine:
         *,
         telemetry_templates: Optional[tuple] = None,
         route_stats=None,
+        n_real=None,
     ) -> BatchDecisions:
         """Route an encoded batch across the sharded fleet.
 
@@ -761,10 +763,9 @@ class ShardedRoutingEngine:
         gathered per server, no [n_servers, T] window anywhere).  For
         SONAR-GEO, ``(client_region [n_q], region_rtt_ms [n_regions,
         n_servers])`` keeps the RTT input compact the same way.
-        ``route_stats`` raises NotImplementedError.
+        ``route_stats`` and ``n_real`` as `BatchRoutingEngine.route`.
         """
-        if route_stats is not None:
-            raise NotImplementedError(ROUTE_STATS_NOT_PORTED)
+        check_route_stats(batch, route_stats, n_real)
         if batch.n == 0:
             z = np.zeros((0,), np.float32)
             return BatchDecisions(

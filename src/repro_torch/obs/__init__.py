@@ -5,14 +5,21 @@ One `Observability` bundle is threaded through the serving stack: a
 (lifecycle spans, Chrome trace export).  The reference's device-side
 routing stats (``jit_stats=True``) and score audit tap (``audit=True``)
 are not ported yet (`ROADMAP.md` queue 1, item 10) and raise
-`NotImplementedError`.
+`NotImplementedError`; the bundle's ``audit_tap`` and ``route_stats``
+are therefore always None, and the serving layers pass them through.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
 from repro_torch.obs.metrics import Counter, Gauge, Histogram, MetricsRegistry
-from repro_torch.obs.trace import NULL_TRACER, SpanTracer
+from repro_torch.obs.trace import (
+    NULL_TRACER,
+    SpanTracer,
+    annotate,
+    emit_flush_spans,
+    emit_request_spans,
+)
 
 __all__ = [
     "Counter",
@@ -22,6 +29,9 @@ __all__ = [
     "NULL_TRACER",
     "Observability",
     "SpanTracer",
+    "annotate",
+    "emit_flush_spans",
+    "emit_request_spans",
 ]
 
 
@@ -57,3 +67,14 @@ class Observability:
             )
         self.registry = registry if registry is not None else MetricsRegistry()
         self.tracer = SpanTracer(enabled=trace, clock_ms=clock_ms, max_events=max_trace_events)
+        self.audit_tap = None
+        self.route_stats = None
+
+    def ensure_route_stats(self, n_servers: int):
+        """The gateway's device-side route accumulator: None while
+        ``jit_stats`` is off (always, until it is ported)."""
+        return self.route_stats
+
+    def drain_route_stats(self) -> None:
+        """Flush-boundary hook of the serving drivers; nothing to drain
+        without device route stats."""

@@ -8,21 +8,26 @@ returns a cached no-op context manager, so call sites cost one attribute
 check.
 
 The reference's `annotate` hook (`jax.profiler.TraceAnnotation` around
-the jit hot paths) becomes `torch.profiler.record_function` at the call
-sites, always on (it costs next to nothing without an active profiler).
-The reference's span emitters for the gateway, the micro-batch pump and
-the chaos schedule come with those layers (`ROADMAP.md` queue 1, items 7,
-8 and 10).
+the jit hot paths, behind a switch) is `torch.profiler.record_function`
+here, always on: it costs next to nothing without an active profiler.
+`emit_flush_spans` / `emit_request_spans` are the serving drivers' span
+emitters; the chaos schedule's comes with that layer (`ROADMAP.md` queue
+1, item 8).
 """
 from __future__ import annotations
 
 import json
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
+
+import torch
 
 __all__ = [
     "NULL_TRACER",
     "SpanTracer",
+    "annotate",
+    "emit_flush_spans",
+    "emit_request_spans",
 ]
 
 
@@ -185,3 +190,73 @@ class SpanTracer:
 
 
 NULL_TRACER = SpanTracer(enabled=False)
+
+
+def annotate(name: str):
+    """Label a block of device work in a `torch.profiler` trace."""
+    return torch.profiler.record_function(name)
+
+
+# ---------------------------------------------------------------------------
+# Structured emission helpers shared by the serving drivers
+# ---------------------------------------------------------------------------
+
+def emit_flush_spans(
+    tracer: SpanTracer,
+    t0_ms: float,
+    t1_ms: float,
+    phases: Sequence[tuple],
+    rids: Sequence[int],
+    *,
+    tid=0,
+    flush_idx: Optional[int] = None,
+) -> None:
+    """Emit one flush's span tree: a parent ``flush`` span over [t0, t1]
+    and child phase spans (encode / dispatch / merge) that **tile the
+    interval exactly**: the phase durations (wall ms measured inside
+    `SonarGateway.route_batch`) are rescaled so their sum equals the
+    caller-observed flush duration, and the last phase absorbs the
+    rounding remainder."""
+    if not tracer.enabled:
+        return
+    args = {"rids": list(rids), "batch": len(rids)}
+    if flush_idx is not None:
+        args["flush"] = flush_idx
+    tracer.add_span("flush", t0_ms, t1_ms, cat="serving", tid=tid, args=args)
+    total = sum(max(d, 0.0) for _, d in phases)
+    span_ms = max(t1_ms - t0_ms, 0.0)
+    if total <= 0.0 or span_ms <= 0.0:
+        return
+    scale = span_ms / total
+    cur = t0_ms
+    for j, (name, dur) in enumerate(phases):
+        end = t1_ms if j == len(phases) - 1 else cur + max(dur, 0.0) * scale
+        tracer.add_span(
+            name, cur, end, cat="serving", tid=tid,
+            args=None if flush_idx is None else {"flush": flush_idx},
+        )
+        cur = end
+
+
+def emit_request_spans(
+    tracer: SpanTracer,
+    rid: int,
+    t_arrival_ms: float,
+    t_routed_ms: float,
+    t_done_ms: float,
+    *,
+    replica_idx: int = -1,
+    flush_idx: Optional[int] = None,
+) -> None:
+    """Per-request lifecycle spans on the ``requests`` track: ``serve``
+    (arrival -> completion) wrapping ``queue_wait`` (arrival -> flush
+    start); the rest of ``serve`` is the flush the request rode."""
+    if not tracer.enabled:
+        return
+    args = {"rid": rid, "replica": replica_idx}
+    if flush_idx is not None:
+        args["flush"] = flush_idx
+    tracer.add_span("serve", t_arrival_ms, t_done_ms, cat="request",
+                    pid="requests", tid=rid, args=args)
+    tracer.add_span("queue_wait", t_arrival_ms, t_routed_ms, cat="request",
+                    pid="requests", tid=rid, args={"rid": rid})

@@ -303,7 +303,10 @@ def test_port_imports_neither_jax_nor_the_reference():
         "for m in ('core.batch_routing', 'core.mesh_routing', 'core.adaptive',\n"
         "          'traffic.fleet', 'kernels.select_fuse', 'kernels.flash_attention',\n"
         "          'kernels.decode_attention', 'models.api', 'models.lm', 'nn.core',\n"
-        "          'configs.internlm2_1_8b', 'obs.trace', 'serving.engine'):\n"
+        "          'configs.internlm2_1_8b', 'obs.trace', 'serving.engine',\n"
+        "          'core.latency', 'core.platform', 'core.agent', 'core.metrics',\n"
+        "          'traffic.arrivals', 'traffic.source', 'sessions.warmth',\n"
+        "          'serving.gateway', 'serving.microbatch', 'serving.frontend'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,

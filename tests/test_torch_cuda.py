@@ -652,3 +652,101 @@ def test_decode_kernel_split_edges(cuda, dtype, D, S):
                                sm_scale=1 / math.sqrt(D)).reshape(B, Hkv * G, D)
     torch.testing.assert_close(got[1:].float(), want_ref[1:].float(), **ATTN_TOL[dtype])
     assert torch.equal(ops.decode_attention(q, k, v, lengths), got)
+
+
+# ---------------------------------------------------------------------------
+# the paper harness and the gateway on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_device_telemetry_ring_oldest_first_on_the_card(cuda, dtype):
+    """After more than W pushes the ring hands out its window oldest-first,
+    equal to the host roll window's (bf16 rounds each sample once)."""
+    from repro_torch.serving.gateway import DeviceTelemetry, _HostTelemetry
+
+    rng = np.random.default_rng(2)
+    init = rng.uniform(1.0, 1100.0, (300, 16)).astype(np.float32)
+    ring, host = DeviceTelemetry(init, dtype=dtype, device=cuda), _HostTelemetry(init, dtype)
+    for k in range(40):
+        col = rng.uniform(1.0, 1100.0, 300).astype(np.float32)
+        ring.push(col)
+        host.push(col)
+        if k % 7 == 0:
+            assert ring.raw().device.type == "cuda" and ring.raw().is_contiguous()
+            np.testing.assert_array_equal(ring.host(), host.host())
+    np.testing.assert_array_equal(ring.raw().float().cpu().numpy(), host.host())
+
+
+def _records_key(recs):
+    return [(r.success, r.n_calls, r.n_failures, r.call_latencies_ms, r.completion_ms,
+             r.final_server_idx, [(d.server_idx, d.tool_idx) for d in r.decisions])
+            for r in recs]
+
+
+@pytest.mark.parametrize("algo", ["prag", "sonar", "sonar_ft"])
+def test_batch_agent_kernel_path_equals_plain_path(cuda, algo):
+    """BatchAgent episodes on traces drawn on the card: the kernel path
+    (BM25, per-query QoS, fused stage 2) gives the plain path's records."""
+    from repro_torch.core.agent import BatchAgent
+    from repro_torch.core.platform import NetMCPPlatform
+
+    servers = dataset.mock_cluster(dataset.build_server_pool(0), n_per_template=4)
+    queries = dataset.build_query_dataset(n=40, seed=3)
+    out = []
+    for use_kernels in (True, False):
+        plat = NetMCPPlatform(servers, scenario="hybrid", seed=2, device=cuda)
+        eng = make_engine(algo, servers, device=cuda, use_kernels=use_kernels)
+        ops.reset_launches()
+        recs = BatchAgent(plat, eng).run_benchmark(queries, ticks_per_query=150)
+        launches = ops.launch_counts()
+        out.append((recs, plat.observed.copy()))
+        if use_kernels:
+            assert launches["bm25_scores"] > 0 and launches["fused_score_select"] > 0
+            assert (launches["qos_scores"] > 0) == (algo != "prag")
+        else:
+            assert not any(launches.values())
+    (rk, ok), (rp, op) = out
+    assert _records_key(rk) == _records_key(rp)
+    np.testing.assert_allclose([r.final_expertise for r in rk], [r.final_expertise for r in rp],
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(ok, op)
+
+
+@pytest.mark.parametrize("shards", [None, 2])
+def test_gateway_kernel_path_equals_plain_path(cuda, shards):
+    """Padded and unpadded `route_batch` flushes on the card (the sharded
+    engine reaches the fused selection): picks and end state equal to a
+    gateway whose engine runs the plain path."""
+    from repro_torch.core.batch_routing import BatchRoutingEngine
+    from repro_torch.core.latency import outage_profile
+    from repro_torch.core.mesh_routing import ShardedRoutingEngine
+    from repro_torch.serving.gateway import SonarGateway, replica_pool
+
+    reps = replica_pool([("yi-6b", "dense"), ("whisper-tiny", "audio"), ("deepseek-moe-16b", "moe")]
+                        * 10)
+    prof = [outage_profile(probability=0.3, duration_min_s=10.0, duration_max_s=30.0)] * 30
+    texts = ["search the web for the latest news", "transcribe this recording",
+             "generate a chat reply"]
+    for algo in ("sonar_lb", "sonar_ft"):
+        gws = []
+        for use_kernels in (True, False):
+            gw = SonarGateway(reps, profiles=prof, algo=algo, seed=4, use_kernels=True,
+                              shards=shards, eject_after=2, device=cuda)
+            if not use_kernels:
+                cls = ShardedRoutingEngine if shards else BatchRoutingEngine
+                kw = dict(n_shards=shards) if shards else {}
+                gw._engine = cls(reps, gw.router.cfg, algo=algo, index=gw.router.index,
+                                 device=cuda, use_kernels=False, **kw)
+            ops.reset_launches()
+            res = [gw.route_batch([texts[(i + j) % 3] for j in range(3 + i)],
+                                  pad_to=16 if i % 2 else None) for i in range(10)]
+            launches = ops.launch_counts()
+            assert bool(launches["fused_select" if shards else "fused_score_select"]) \
+                == use_kernels
+            gws.append((gw, res))
+        (gk, rk), (gp, rp) = gws
+        assert [[(r.replica_idx, r.latency_ms, r.ok) for r in x] for x in rk] == [
+            [(r.replica_idx, r.latency_ms, r.ok) for r in x] for x in rp]
+        for f in ("in_flight", "fail_streak", "ejected", "telemetry"):
+            np.testing.assert_array_equal(getattr(gk, f), getattr(gp, f))
+        assert gk.t == gp.t and gk.report() == gp.report()
