@@ -20,7 +20,11 @@ card from a seed) with ``attn_impl="pallas"``: the flash-attention kernel
 in every prefill, the flash-decode kernel in every decode step.  Above the
 engines, the paper harness (``BatchAgent(NetMCPPlatform(...), engine)
 .run_benchmark(...)``) and the serving gateway (``MicroBatchPump(
-SonarGateway(...)).replay(...)``) run at the 10,005-server fleet's size.
+SonarGateway(...)).replay(...)``) run at the 10,005-server fleet's size,
+and so do the scenario axes: chaos (``NetMCPPlatform(..., chaos=
+build_schedule(standard_fault_mix(1.0, ...)))``) and the WAN layer
+(``build_topology`` / ``GeoPlacement``), with the reference benchmarks'
+gates run through ``FleetTrafficSim`` and ``SessionTrafficSim``.
 
 1. set-up: TF32 off, the card's name and power limit, both fleets, the
    queries and seeded telemetry;
@@ -71,6 +75,22 @@ SonarGateway(...)).replay(...)``) run at the 10,005-server fleet's size.
    over a ``SonarGateway`` of 10,005 replicas, SONAR and SONAR-LB, with
    ``shards=None`` and ``shards=4`` (the device ring, the fused
    selection); picks, results and end state equal to the plain path's;
+3f. the scenario axes with the counters set to 0 before each engine part:
+   (a) ``standard_fault_mix(1.0, 10005, 86400)`` compiled by
+   ``build_schedule`` on the card (timed, and its crash recurrence alone),
+   then PRAG, SONAR, SONAR-LB and SONAR-FT ``BatchAgent`` episodes of 256
+   tasks (4 turns at most, a share starting inside the partition and the
+   blackout) on the chaos platform; every turn's decisions and every record
+   equal to the plain path's, one BM25, one fused stage 2 and (network-aware)
+   one per-query QoS launch per turn; (b) ``build_topology(6, seed=2024)``
+   with its overlays drawn on the card and ``place_servers(10005, 6)``,
+   SONAR-GEO routes of 256 queries from client regions drawn from
+   ``client_populations(6, skew=1.0)`` at three ticks, equal to the plain
+   path's and to the scalar ``SonarGeoRouter`` on the first 16 queries;
+   (c) the gates of ``benchmarks/offered_load.py``, ``chaos_recovery.py``,
+   ``geo_routing.py`` and ``session_routing.py`` at their non-smoke sizes
+   (the smoke sizes in the rehearsal), every generator on the card, with
+   their conservation checks;
 4. times: each kernel's median over CUDA-event-timed launches beside its
    plain version, one library call where there is one, and its bound; the
    end-to-end ``route_texts`` time per batch on both paths; a profile of one
@@ -86,8 +106,10 @@ SonarGateway(...)).replay(...)``) run at the 10,005-server fleet's size.
    flash library's SASS, which must not be 0; a profile of one 1536-token
    prefill and one 8-slot decode step of internlm2-1.8b; one
    ``BatchAgent`` turn at 10,005 servers (the host's ``latency_windows``,
-   its copy and the route apart) and one pump flush of 32 requests on each
-   gateway, with profiles, and replays with the flush time measured.
+   its copy and the route apart), the same turn under phase 3f's chaos
+   schedule (SONAR-FT with per-query telemetry ages) and one pump flush of
+   32 requests on each gateway, with profiles, and replays with the flush
+   time measured.
 
 The line before the last is the ``kernels`` JSON object; the last is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
@@ -289,6 +311,232 @@ def serve_requests(cfg, plain_cfg, params, dev, n_slots, cap, prompts, max_new, 
     return dict(stats, steps=steps, wall_s=wall, launches=launches,
                 admitted=int(reg.value("engine_admitted_total")),
                 tokens=int(reg.value("engine_tokens_total")), requests=kreqs)
+
+
+# the reference benchmarks' query texts (benchmarks/offered_load.py,
+# geo_routing.py, session_routing.py; chaos_recovery.py has its own)
+BENCH_TEXTS = (
+    "what is the latest news about the stock market today",
+    "search the web for current weather information",
+    "find recent articles about machine learning research",
+    "look up live election results online",
+)
+CHAOS_TEXTS = (
+    "search the web for current news about the economy",
+    "look up live information online about the election",
+    "find real-time facts on the internet about the weather",
+    "web search for fresh articles about machine learning",
+)
+
+
+def conserved(rep, what):
+    """A `TrafficReport`'s conservation: every offered request completed or
+    failed."""
+    if rep.n_completed + rep.n_failed != rep.n_offered:
+        fail(f"{what}: offered {rep.n_offered} != completed {rep.n_completed} + failed "
+             f"{rep.n_failed}")
+
+
+def gate_offered_load(dev, smoke):
+    """`benchmarks/offered_load.py` on the port's streams: SONAR vs SONAR-LB
+    over identical replicas; SONAR-LB must win goodput and p99 at two load
+    points past single-server saturation (one at the smoke size)."""
+    import torch
+
+    from repro_torch.core.routing import RoutingConfig, make_router
+    from repro_torch.traffic import (FleetTrafficSim, QueueConfig, ideal_platform,
+                                     poisson_arrivals, replica_fleet)
+
+    qc = QueueConfig(capacity=2, queue_limit=8, base_service_ms=500.0, inflation=1.0)
+    n, rates, horizon = (4, (2.0, 8.0), 45.0) if smoke else (6, (2.0, 6.0, 8.0, 12.0), 120.0)
+    cfg = RoutingConfig(gamma=0.35, top_s=n, top_k=n)
+    sat = qc.capacity * 1000.0 / qc.base_service_ms
+    pts, rows = {}, []
+    for rate in rates:
+        for algo in ("sonar", "sonar_lb"):
+            servers = replica_fleet(n)
+            plat = ideal_platform(servers, seed=0, horizon_s=4.0 * horizon, device=dev)
+            arr = poisson_arrivals(torch.Generator(device=dev).manual_seed(0), rate, horizon)
+            rep = FleetTrafficSim(plat, make_router(algo, servers, cfg), qc, retry_budget=2,
+                                  seed=0, device=dev).run(arr, BENCH_TEXTS)
+            conserved(rep, f"offered_load {algo} {rate}")
+            pts[rate, algo] = rep
+            rows.append(f"{rate:.1f} rps {rep.row(algo)}")
+    won = [r for r in rates if r > sat
+           and pts[r, "sonar_lb"].goodput_rps > pts[r, "sonar"].goodput_rps
+           and pts[r, "sonar_lb"].p99_ms < pts[r, "sonar"].p99_ms]
+    if len(won) < (1 if smoke else 2):
+        fail(f"offered_load: SONAR-LB won at only {len(won)} post-saturation load points: {rows}")
+    return rows, f"SONAR-LB wins goodput and p99 past saturation ({sat:.0f} rps) at {won} rps"
+
+
+def gate_chaos_recovery(dev, smoke):
+    """`benchmarks/chaos_recovery.py` on the port's streams, through the
+    scalar `Agent`: SONAR-FT >= SONAR, SONAR-LB and PRAG on success and
+    failures at every intensity, strictly (and no longer degraded) at the
+    highest."""
+    import numpy as np
+
+    from repro_torch.chaos import build_schedule, standard_fault_mix
+    from repro_torch.core import latency as L
+    from repro_torch.core.agent import Agent, spread_start_ticks
+    from repro_torch.core.dataset import Query
+    from repro_torch.core.platform import NetMCPPlatform
+    from repro_torch.core.routing import RoutingConfig, make_router
+    from repro_torch.traffic import replica_fleet
+
+    n, horizon, n_q, max_turns = (6, 600.0, 60, 4) if smoke else (6, 900.0, 160, 4)
+    xs = (0.0, 0.5, 1.0) if smoke else (0.0, 0.3, 0.6, 1.0)
+    queries = [Query(text=CHAOS_TEXTS[i % 4], intent="websearch", answer="ok") for i in range(n_q)]
+    pts, rows = {}, []
+    for x in xs:
+        faults = standard_fault_mix(x, n, horizon)
+        n_steps = L.trace_horizon_steps(horizon, 1.0)
+        chaos = build_schedule(faults, n, n_steps, 1.0, seed=0, device=dev) if faults else None
+        for algo in ("prag", "sonar", "sonar_lb", "sonar_ft"):
+            servers = replica_fleet(n)
+            plat = NetMCPPlatform(servers, profiles=[L.ideal_profile() for _ in servers],
+                                  scenario="ideal", seed=0, horizon_s=horizon, dt_s=1.0,
+                                  chaos=chaos, device=dev)
+            agent = Agent(plat, make_router(algo, servers, RoutingConfig(top_s=n, top_k=n)),
+                          max_turns=max_turns)
+            ticks = spread_start_ticks(n_q, plat.n_steps, max_turns, agent.ticks_per_turn,
+                                       ticks_per_query=max((plat.n_steps - max_turns - 1) // n_q,
+                                                           1))
+            recs = [agent.run_task(q, int(t)) for q, t in zip(queries, ticks)]
+            # degraded seconds: 24 bins of the horizon from the first fault on
+            # whose success rate is below 95 %
+            onset = min(f.start_s for f in faults) if faults else horizon
+            edges = np.linspace(0.0, horizon, 25)
+            degraded = 0.0
+            for lo, hi in zip(edges[:-1], edges[1:]):
+                sel = (ticks >= lo) & (ticks < hi)
+                if hi > onset and sel.any() and np.mean([recs[i].success for i in
+                                                         np.flatnonzero(sel)]) < 0.95:
+                    degraded += hi - lo
+            p = dict(ssr=100.0 * float(np.mean([r.success for r in recs])),
+                     failures=int(sum(r.n_failures for r in recs)), recovery_s=degraded)
+            pts[x, algo] = p
+            rows.append(f"x={x:.1f} {algo} ssr={p['ssr']:.1f}% failures={p['failures']} "
+                        f"recovery={p['recovery_s']:.0f}s")
+    for x in xs:
+        ft = pts[x, "sonar_ft"]
+        for base in ("sonar", "sonar_lb", "prag"):
+            b = pts[x, base]
+            if not (ft["ssr"] >= b["ssr"] and ft["failures"] <= b["failures"]):
+                fail(f"chaos_recovery x={x}: SONAR-FT {ft} loses to {base} {b}")
+            if x == xs[-1] and not (ft["ssr"] > b["ssr"] and ft["failures"] < b["failures"]
+                                    and ft["recovery_s"] <= b["recovery_s"]):
+                fail(f"chaos_recovery x={x}: SONAR-FT {ft} does not strictly beat {base} {b}")
+    return rows, (f"SONAR-FT >= SONAR, SONAR-LB, PRAG on success and failures at x in {xs}, "
+                  f"strictly at x={xs[-1]}")
+
+
+def gate_geo_routing(dev, smoke):
+    """`benchmarks/geo_routing.py` on the port's streams: SONAR-GEO's p99 <=
+    SONAR-LB's and its local share >= at every RTT-dominant point, p99
+    strictly better at the most RTT-dominated point of each region count."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.routing import RoutingConfig, make_router
+    from repro_torch.geo import (GeoPlacement, build_topology, client_populations,
+                                 place_servers, regional_arrivals)
+    from repro_torch.traffic import FleetTrafficSim, QueueConfig, ideal_platform, replica_fleet
+
+    qc = QueueConfig(capacity=2, queue_limit=8, base_service_ms=150.0, inflation=1.0)
+    counts, scales = ((3,), (0.0, 3.0, 6.0)) if smoke else ((2, 4), (0.0, 1.0, 3.0, 6.0))
+    per_region, rate, horizon = 3, 6.0, (40.0 if smoke else 90.0)
+    pts, rows = {}, []
+    for n_regions in counts:
+        for scale in scales:
+            for algo in ("sonar_lb", "sonar_geo"):
+                n = n_regions * per_region
+                topo = build_topology(n_regions, seed=0, horizon_s=4.0 * horizon, dt_s=1.0,
+                                      rtt_scale=scale, device=dev)
+                place = GeoPlacement(topo, place_servers(n, n_regions),
+                                     client_populations(n_regions, skew=1.5))
+                servers = replica_fleet(n)
+                plat = ideal_platform(servers, seed=0, horizon_s=4.0 * horizon, geo=place,
+                                      device=dev)
+                arr, regs = regional_arrivals(torch.Generator(device=dev).manual_seed(0), place,
+                                              rate, horizon)
+                rep = FleetTrafficSim(plat, make_router(algo, servers, RoutingConfig(
+                    top_s=n, top_k=n)), qc, retry_budget=2, seed=0, device=dev).run(
+                    arr, BENCH_TEXTS, regions=regs)
+                conserved(rep, f"geo_routing R={n_regions} x={scale} {algo}")
+                done = [r for r in rep.requests if r.done]
+                local = sum(place.server_region[r.server_idx] == r.region for r in done)
+                rtt = topo.rtt_matrix(None)
+                cross = float(rtt[~np.eye(n_regions, dtype=bool)].mean())
+                pts[n_regions, scale, algo] = (rep, local / max(len(done), 1), cross)
+                rows.append(f"R={n_regions} x={scale:.1f} {rep.row(algo)} local="
+                            f"{local / max(len(done), 1):.2f} cross_rtt={cross:.0f}ms")
+    dominant = [(r, s) for r in counts for s in scales
+                if pts[r, s, "sonar_geo"][2] >= qc.base_service_ms]
+    if not dominant:
+        fail("geo_routing: no RTT-dominant point")
+    for r, s in dominant:
+        (g, gl, _), (b, bl, _) = pts[r, s, "sonar_geo"], pts[r, s, "sonar_lb"]
+        if not (g.p99_ms <= b.p99_ms and gl >= bl):
+            fail(f"geo_routing R={r} x={s}: SONAR-GEO p99 {g.p99_ms:.0f} / local {gl:.2f} vs "
+                 f"SONAR-LB {b.p99_ms:.0f} / {bl:.2f}")
+    for r in {r for r, _ in dominant}:
+        s = max(s for rr, s in dominant if rr == r)
+        if not pts[r, s, "sonar_geo"][0].p99_ms < pts[r, s, "sonar_lb"][0].p99_ms:
+            fail(f"geo_routing R={r} x={s}: SONAR-GEO does not strictly beat SONAR-LB on p99")
+    return rows, f"SONAR-GEO p99 <= SONAR-LB and local share >= at RTT-dominant {dominant}"
+
+
+def gate_session_routing(dev, smoke):
+    """`benchmarks/session_routing.py` on the port's streams: SONAR-SESSION
+    above semantic-only SONAR on task success and task p99 at every point
+    where SONAR fails tasks; node conservation everywhere."""
+    import torch
+
+    from repro_torch.core.routing import RoutingConfig, make_router
+    from repro_torch.sessions import SessionTrafficSim, generate_sessions
+    from repro_torch.traffic import QueueConfig, ideal_platform, replica_fleet
+
+    qc = QueueConfig(capacity=4, queue_limit=16, base_service_ms=200.0, inflation=1.0)
+    n, rates, horizon = 6, ((6.0, 9.0) if smoke else (4.0, 6.0, 8.0, 9.0)), 60.0
+    cfg = RoutingConfig(gamma=0.35, top_s=n, top_k=n)
+    pts, rows = {}, []
+    for rate in rates:
+        for algo in ("sonar", "sonar_session"):
+            servers = replica_fleet(n)
+            plat = ideal_platform(servers, seed=0, horizon_s=4.0 * horizon, device=dev)
+            sessions = generate_sessions(torch.Generator(device=dev).manual_seed(3), rate,
+                                         horizon, list(BENCH_TEXTS))
+            rep = SessionTrafficSim(plat, make_router(algo, servers, cfg), qc, hedge_ms=150.0,
+                                    retry_budget=2, seed=0, device=dev).run_sessions(sessions)
+            rep.check_accounting()
+            if rep.n_nodes_offered != rep.n_nodes_completed + rep.n_nodes_failed:
+                fail(f"session_routing {algo} {rate}: node conservation leak")
+            pts[rate, algo] = rep
+            rows.append(f"{rate:.1f} sessions/s {rep.row(algo)} p50={rep.task_p50_ms:.0f}ms "
+                        f"hedges={rep.n_hedges}")
+    # the benchmark's post-saturation points: SONAR fails tasks there; both
+    # terms of the gate are strict at each
+    post = [r for r in rates if pts[r, "sonar"].n_tasks_failed > 0]
+    for r in post:
+        s, b = pts[r, "sonar_session"], pts[r, "sonar"]
+        if not (s.task_success_rate > b.task_success_rate and s.task_p99_ms < b.task_p99_ms):
+            fail(f"session_routing {r}: SONAR-SESSION {s.row('session')} does not beat "
+                 f"{b.row('sonar')}")
+    # past one replica's node capacity (capacity / service, over the mean
+    # DAG of ~4.3 nodes: ~4.6 sessions/s, the benchmark's docstring) the
+    # sticky router's task p99 must be the lower at every rate
+    sat = qc.capacity * 1000.0 / qc.base_service_ms / 4.3
+    for r in rates:
+        if r > sat and not pts[r, "sonar_session"].task_p99_ms < pts[r, "sonar"].task_p99_ms:
+            fail(f"session_routing {r}: SONAR-SESSION's task p99 is not below SONAR's")
+    if not post:
+        return rows, (f"SONAR fails no task at any rate on this stream, so the benchmark's "
+                      f"success gate (strict, where SONAR fails tasks) is NOT EXERCISED; "
+                      f"SONAR-SESSION's task p99 is below SONAR's at every rate past "
+                      f"{sat:.1f} sessions/s")
+    return rows, f"SONAR-SESSION beats SONAR on task success and p99 at {post} sessions/s"
 
 
 def main(rehearse: bool) -> None:
@@ -1124,6 +1372,135 @@ def main(rehearse: bool) -> None:
     check_launches(seen, want, "the gateway (3e)")
     log(f"phase 3e: launches {seen}")
 
+    # ----------------------------------------------------------------- 3f
+    # the scenario axes: (a) chaos on the engine at the fleet's full width,
+    # BatchAgent episodes under standard_fault_mix(1.0) compiled on the card;
+    # (b) SONAR-GEO routes over a 6-region WAN drawn on the card; (c) the
+    # reference benchmarks' gates through the ported simulators on the
+    # port's own streams
+    from repro_torch.chaos import CrashRestartFault, build_schedule, standard_fault_mix
+    from repro_torch.chaos.faults import crash_restart_masks
+    from repro_torch.chaos.schedule import fault_generator
+    from repro_torch.geo import GeoPlacement, build_topology, client_populations, place_servers
+
+    t_3f = time.perf_counter()
+    horizon_s, n_steps_day = 86400.0, 8640
+    faults = standard_fault_mix(1.0, n_s, horizon_s)
+    crash = [f for f in faults if isinstance(f, CrashRestartFault)]
+    sync()
+    t0 = time.perf_counter()
+    chaos = build_schedule(faults, n_s, n_steps_day, 10.0, seed=0, device=dev)
+    t_sched = time.perf_counter() - t0
+    fi = faults.index(crash[0])
+    sync()
+    t0 = time.perf_counter()
+    crash_restart_masks(fault_generator(0, fi, dev), crash[0], n_steps_day, 10.0)
+    t_crash = time.perf_counter() - t0
+    log(f"phase 3f (a): standard_fault_mix(1.0, {n_s}, 86400): {len(faults)} faults, crash/"
+        f"restart over {len(crash[0].servers)} rows x {n_steps_day} ticks; build_schedule "
+        f"{t_sched:.2f} s on {dev} (the crash recurrence alone {t_crash:.2f} s) [{smi_tag}]; "
+        f"down share {chaos.down.mean():.4f}, stale share {chaos.stale.mean():.4f}, "
+        f"degraded share {(chaos.degrade > 1.0).mean():.4f}")
+    part = faults[0]
+    ticks_3f = agentlib.spread_start_ticks(n_q, n_steps_day, 4, 1, 0, 32, 0)
+    in_part = int(np.sum((ticks_3f * 10.0 >= part.start_s)
+                         & (ticks_3f * 10.0 < part.start_s + part.duration_s)))
+    in_stale = int(np.sum(chaos.stale[0, np.clip(ticks_3f, 0, n_steps_day - 1)]))
+
+    def chaos_episodes(algo, use_kernels):
+        plat = NetMCPPlatform(servers, scenario="hybrid", seed=1, chaos=chaos, device=dev)
+        eng = make_engine(algo, servers, cfg, device=dev, index=index, use_kernels=use_kernels)
+        turns = record_routes(eng)
+        t = time.perf_counter()
+        recs = agentlib.BatchAgent(plat, eng, max_turns=4).run_benchmark(fq, ticks_per_query=32)
+        sync()
+        return (recs, turns, plat), time.perf_counter() - t
+
+    ops.reset_launches()                       # phase 3f (a)'s count starts here
+    want, seen = {}, ops.launch_counts()
+    for algo in ("prag", "sonar", "sonar_lb", "sonar_ft"):
+        k, t_k = chaos_episodes(algo, True)
+        for name, v in episode_launches(algo, len(k[1])).items():
+            want[name] = want.get(name, 0) + v
+        seen = ops.launch_counts()
+        p, t_p = chaos_episodes(algo, False)
+        if ops.launch_counts() != seen:
+            fail("phase 3f (a): the plain path launched a kernel")
+        same_episodes(k, p, f"chaos {algo}", n_s)
+        r = metricslib.evaluate(k[0], servers)
+        log(f"phase 3f (a): {algo}: {len(k[1])} turns over {n_q} tasks ({in_part} start inside "
+            f"the partition, {in_stale} inside the group's blackout), kernel path {t_k:.2f} s "
+            f"({1e3 * t_k / len(k[1]):.1f} ms a turn), plain path {t_p:.2f} s (host clock) "
+            f"[{smi_tag}]; {r.row(f'chaos_{algo}')}")
+        del k, p
+    check_launches(seen, want, "the chaos episodes (3f a)")
+    log(f"phase 3f (a): every turn's decisions and every record equal on the kernel and plain "
+        f"paths under chaos; launches {seen}; part (a) in {time.perf_counter() - t_3f:.1f} s")
+
+    # (b) SONAR-GEO on the single engine: a 6-region WAN (overlays drawn on
+    # the card), the fleet placed round-robin, 256 client regions drawn from
+    # a Zipf(1.0) population, routes at three ticks
+    t_3fb = t0 = time.perf_counter()
+    topo = build_topology(6, seed=2024, device=dev)
+    place = GeoPlacement(topo, place_servers(n_s, 6), client_populations(6, skew=1.0))
+    sync()
+    t_topo = time.perf_counter() - t0
+    ggen = torch.Generator(device=dev).manual_seed(4)
+    c_region = torch.multinomial(torch.as_tensor(place.client_weights, device=dev), n_q,
+                                 replacement=True, generator=ggen).cpu().numpy().astype(np.int32)
+    plat_g = NetMCPPlatform(servers, scenario="hybrid", seed=1, geo=place, device=dev)
+    ek_g, ep_g = engines["sonar_geo"]
+    g_ticks = (1000, 4321, 7777)
+    ops.reset_launches()                       # phase 3f (b)'s count starts here
+    g_dec = [ek_g.route_texts(batches[0], plat_g.latency_window(t), client_region=c_region,
+                              region_rtt_ms=place.region_server_rtt(t)) for t in g_ticks]
+    sync()
+    seen = ops.launch_counts()
+    check_launches(seen, {"bm25_scores": 3, "qos_scores": 3, "fused_score_select": 3},
+                   "the SONAR-GEO routes (3f b)")
+    for t, dk in zip(g_ticks, g_dec):
+        dp = ep_g.route_texts(batches[0], plat_g.latency_window(t), client_region=c_region,
+                              region_rtt_ms=place.region_server_rtt(t))
+        same(dk, dp, f"SONAR-GEO at tick {t}")
+    if ops.launch_counts() != seen:
+        fail("phase 3f (b): the plain path launched a kernel")
+    georouter = make_router("sonar_geo", servers[:1], cfg)
+    georouter.index = index
+    n_geo_scalar = 16
+    for t, dk in zip(g_ticks, g_dec):
+        win = plat_g.latency_window(t)
+        for i in range(n_geo_scalar):
+            d = georouter.select(batches[0][i], win,
+                                 client_rtt_ms=place.client_rtt_ms(int(c_region[i]), t))
+            if (d.server_idx, d.tool_idx) != (int(dk.server_idx[i]), int(dk.tool_idx[i])) \
+                    or not np.isclose(d.fused, dk.fused[i], rtol=RTOL, atol=ATOL):
+                fail(f"SONAR-GEO tick {t} query {i}: scalar router {(d.server_idx, d.fused)}, "
+                     f"engine {(int(dk.server_idx[i]), float(dk.fused[i]))}")
+    local = [float(np.mean(place.server_region[dk.server_idx] == c_region)) for dk in g_dec]
+    rtt_static = topo.rtt_matrix(None)
+    log(f"phase 3f (b): build_topology(6, seed=2024) overlays {list(topo._overlays.shape)} drawn on "
+        f"{dev} + place_servers({n_s}, 6) in {t_topo:.2f} s; mean cross-region RTT "
+        f"{rtt_static[~np.eye(6, dtype=bool)].mean():.1f} ms (static); client regions "
+        f"{np.bincount(c_region, minlength=6).tolist()}; SONAR-GEO routes of {n_q} queries at "
+        f"ticks {g_ticks}: kernel path equal to the plain path, local share {local}, the scalar "
+        f"router agrees on the first {n_geo_scalar} queries at each tick; launches {seen}; "
+        f"part (b) in {time.perf_counter() - t_3fb:.1f} s")
+    del plat_g
+
+    # (c) the reference benchmarks' gates on the port's own streams (every
+    # generator on the card), at their non-smoke sizes (the smoke sizes in
+    # the rehearsal)
+    for gate in (gate_offered_load, gate_chaos_recovery, gate_geo_routing,
+                 gate_session_routing):
+        t0 = time.perf_counter()
+        rows_, verdict = gate(dev, smoke=rehearse)
+        name = gate.__name__[len("gate_"):]
+        for row in rows_:
+            log(f"phase 3f (c): {name}: {row}")
+        log(f"phase 3f (c): {name} in {time.perf_counter() - t0:.2f} s (host clock) "
+            f"[{smi_tag}]: {verdict}")
+    log(f"phase 3f: {time.perf_counter() - t_3f:.1f} s in all")
+
     # ------------------------------------------------------------------ 4
     def timed(fn, n=reps):
         """Median ms of ``n`` calls after two warm-up calls (CUDA events on the card)."""
@@ -1458,6 +1835,25 @@ def main(rehearse: bool) -> None:
                 f"[{n_q}, {n_s}, 64]) [{smi_tag}]",
                 lambda: eng4.route(batch4, plat4.latency_windows(t_vec)), routing)
     del plat4, w4
+    # the same turn under phase 3f's chaos schedule: SONAR-FT with the
+    # per-query telemetry ages (a first turn: no failed mask yet)
+    plat_c = NetMCPPlatform(servers, scenario="hybrid", seed=1, chaos=chaos, device=dev)
+    eng_c = engines["sonar_ft"][0]
+    batch_c = eng_c.encode([q.text for q in fq])
+
+    def chaos_turn():
+        return eng_c.route(batch_c, plat_c.latency_windows(ticks_3f),
+                           telemetry_age_s=plat_c.telemetry_ages_s(ticks_3f))
+
+    ages_ms = host_ms(lambda: plat_c.telemetry_ages_s(ticks_3f), n4)
+    chaos_ms = host_ms(chaos_turn, n4)
+    log(f"phase 4: BatchAgent turn under chaos (sonar_ft, {n_q} tasks, latency_windows + "
+        f"telemetry_ages_s + route): {chaos_ms:.3f} ms wall (median of {n4}, host clock), of "
+        f"which telemetry_ages_s {ages_ms:.3f} ms (host) [{smi_tag}]")
+    if dev.type == "cuda":
+        profile(f"BatchAgent turn under chaos (sonar_ft, {n_q} tasks, per-query "
+                f"[{n_q}, {n_s}, 64] and ages [{n_q}, {n_s}]) [{smi_tag}]", chaos_turn, routing)
+    del plat_c
     texts32 = [GATEWAY_TEXTS[i % len(GATEWAY_TEXTS)] for i in range(32)]
     for algo, shards in (("sonar_lb", None), ("sonar", 4)):
         gw4, _ = gateway(algo, shards, True)

@@ -17,6 +17,7 @@ from repro_torch.obs.trace import (
     NULL_TRACER,
     SpanTracer,
     annotate,
+    emit_chaos_events,
     emit_flush_spans,
     emit_request_spans,
 )
@@ -30,6 +31,7 @@ __all__ = [
     "Observability",
     "SpanTracer",
     "annotate",
+    "emit_chaos_events",
     "emit_flush_spans",
     "emit_request_spans",
 ]

@@ -11,8 +11,8 @@ The reference's `annotate` hook (`jax.profiler.TraceAnnotation` around
 the jit hot paths, behind a switch) is `torch.profiler.record_function`
 here, always on: it costs next to nothing without an active profiler.
 `emit_flush_spans` / `emit_request_spans` are the serving drivers' span
-emitters; the chaos schedule's comes with that layer (`ROADMAP.md` queue
-1, item 8).
+emitters, `emit_chaos_events` renders a fault schedule for the traffic
+simulators.
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ __all__ = [
     "NULL_TRACER",
     "SpanTracer",
     "annotate",
+    "emit_chaos_events",
     "emit_flush_spans",
     "emit_request_spans",
 ]
@@ -260,3 +261,46 @@ def emit_request_spans(
                     pid="requests", tid=rid, args=args)
     tracer.add_span("queue_wait", t_arrival_ms, t_routed_ms, cat="request",
                     pid="requests", tid=rid, args={"rid": rid})
+
+
+def _mask_intervals(row) -> list:
+    """[(start_step, end_step)] maximal runs of True in a bool vector."""
+    out = []
+    start = None
+    for t, v in enumerate(row):
+        if v and start is None:
+            start = t
+        elif not v and start is not None:
+            out.append((start, t))
+            start = None
+    if start is not None:
+        out.append((start, len(row)))
+    return out
+
+
+def emit_chaos_events(tracer: SpanTracer, schedule, dt_s: float) -> None:
+    """Render a `repro_torch.chaos.ChaosSchedule` onto the trace timeline:
+    per-server ``down`` spans (with an ``inject:down`` instant at onset),
+    ``degraded`` spans where the latency inflation exceeds 1, and
+    ``telemetry-stale`` spans for monitoring blackouts, all on a ``chaos``
+    process with one track per server."""
+    if not tracer.enabled or schedule is None:
+        return
+    step_ms = 1000.0 * dt_s
+
+    def spans(mask_row, name, server):
+        for s, e in _mask_intervals(mask_row):
+            tracer.add_span(
+                name, s * step_ms, e * step_ms, cat="chaos",
+                pid="chaos", tid=server, args={"server": server},
+            )
+            if name == "down":
+                tracer.instant(
+                    "inject:down", s * step_ms, cat="chaos",
+                    pid="chaos", tid=server, args={"server": server},
+                )
+
+    for i in range(schedule.n_servers):
+        spans(schedule.down[i], "down", i)
+        spans(schedule.degrade[i] > 1.0, "degraded", i)
+        spans(schedule.stale[i], "telemetry-stale", i)

@@ -750,3 +750,57 @@ def test_gateway_kernel_path_equals_plain_path(cuda, shards):
         for f in ("in_flight", "fail_streak", "ejected", "telemetry"):
             np.testing.assert_array_equal(getattr(gk, f), getattr(gp, f))
         assert gk.t == gp.t and gk.report() == gp.report()
+
+
+def test_crash_recurrence_on_the_card_equals_its_cpu_run(cuda):
+    """The crash/restart recurrence fed the same draws gives the same mask
+    on the card as on the CPU (f32 compares and decrements), at a size with
+    repairs below a tick and a start inside the horizon."""
+    from repro_torch.chaos import faults
+
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    n_steps, rows = 2000, 700
+    u = torch.rand((n_steps, rows), generator=gen)
+    e = torch.empty((n_steps, rows)).exponential_(generator=gen)
+    for f in (faults.CrashRestartFault(servers=tuple(range(rows)), mttf_s=300.0, mttr_s=40.0,
+                                       start_s=125.0),
+              faults.CrashRestartFault(servers=tuple(range(rows)), mttf_s=30.0, mttr_s=0.4)):
+        params = faults.crash_restart_params(f, 1.0)
+        host = faults.crash_restart_recurrence(u, e, *params)
+        card = faults.crash_restart_recurrence(u.to(cuda), e.to(cuda), *params)
+        assert card.device.type == "cuda" and host.any()
+        assert torch.equal(card.cpu(), host)
+    # the schedule's own stream on the card is deterministic per seed
+    f = faults.CrashRestartFault(servers=(0, 1, 2), mttf_s=100.0, mttr_s=20.0)
+    a = faults.crash_restart_masks(torch.Generator(device=cuda).manual_seed(3), f, 500, 1.0)
+    b = faults.crash_restart_masks(torch.Generator(device=cuda).manual_seed(3), f, 500, 1.0)
+    np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("algo", ["prag", "sonar_ft"])
+def test_chaos_batch_agent_kernel_path_equals_plain_path(cuda, algo):
+    """BatchAgent episodes at 300 servers under `standard_fault_mix(1.0)`
+    compiled on the card: staleness ages and failed masks reach the kernel
+    path, whose records equal the plain path's."""
+    from repro_torch.chaos import build_schedule, standard_fault_mix
+    from repro_torch.core.agent import BatchAgent
+    from repro_torch.core.platform import NetMCPPlatform
+
+    servers = dataset.mock_cluster(dataset.build_server_pool(0), n_per_template=20)
+    n = len(servers)
+    chaos = build_schedule(standard_fault_mix(1.0, n, 86400.0), n, 8640, 10.0, seed=1,
+                           device=cuda)
+    queries = dataset.build_query_dataset(n=64, seed=3)
+    out = []
+    for use_kernels in (True, False):
+        plat = NetMCPPlatform(servers, scenario="hybrid", seed=2, chaos=chaos, device=cuda)
+        eng = make_engine(algo, servers, device=cuda, use_kernels=use_kernels)
+        ops.reset_launches()
+        recs = BatchAgent(plat, eng, max_turns=4).run_benchmark(queries, ticks_per_query=130)
+        launches = ops.launch_counts()
+        out.append((recs, plat.observed.copy()))
+        assert bool(launches["bm25_scores"]) == use_kernels
+    (rk, ok), (rp, op) = out
+    assert _records_key(rk) == _records_key(rp)
+    np.testing.assert_array_equal(ok, op)
+    assert any(r.n_failures for r in rk)
