@@ -24,7 +24,10 @@ SonarGateway(...)).replay(...)``) run at the 10,005-server fleet's size,
 and so do the scenario axes: chaos (``NetMCPPlatform(..., chaos=
 build_schedule(standard_fault_mix(1.0, ...)))``) and the WAN layer
 (``build_topology`` / ``GeoPlacement``), with the reference benchmarks'
-gates run through ``FleetTrafficSim`` and ``SessionTrafficSim``.
+gates run through ``FleetTrafficSim`` and ``SessionTrafficSim``.  The
+serving launcher (``repro_torch.launch.serve``: ``serve_sync`` and
+``serve_online``) drives the replicas and the gateway end to end, with the
+audit tap and the device route statistics on.
 
 1. set-up: TF32 off, the card's name and power limit, both fleets, the
    queries and seeded telemetry;
@@ -40,8 +43,10 @@ gates run through ``FleetTrafficSim`` and ``SessionTrafficSim``.
    ``qos_scores`` on the shared and per-query windows, a [n, 63] window and
    a view that is not 16-byte aligned; the attention kernels at the serving
    shapes (flash prefill [1, 16, S, 128] against 8 kv heads in the model's
-   strided layout, flash decode of 8 slots against [8, 2048, 8, 128]
-   caches with lengths 1 to 2048), bf16 and f32;
+   strided layout, S 2048, 1000 and the launcher's 16; flash decode of 8
+   slots against [8, 2048, 8, 128] caches with lengths 1 to 2048, and the
+   launcher's 4 slots against [4, 256, 8, 128] at lengths 17 to 23), bf16
+   and f32;
 3. the single-device path with the launch counters set to 0: every
    kernel-path decision equal to the plain path's on the same card, every
    counter risen by exactly one launch per route, a per-query telemetry
@@ -91,6 +96,29 @@ gates run through ``FleetTrafficSim`` and ``SessionTrafficSim``.
    ``geo_routing.py`` and ``session_routing.py`` at their non-smoke sizes
    (the smoke sizes in the rehearsal), every generator on the card, with
    their conservation checks;
+3g. the serving launcher (``repro_torch.launch.serve``) and the device-side
+   observability, with the counters set to 0 before each part: (a)
+   ``serve_sync`` over 4 internlm2-1.8b replicas at full width sharing one
+   set of weights (4 slots, cap 256, 24 requests of 8 new tokens, hybrid
+   profiles, ``attn_impl="pallas"``) with ``Observability(trace=True,
+   audit=True)``: flash launches 24 per admitted request, decode 24 per
+   decode step, every audit record recomposing its decision bit for bit,
+   copies of the inputs of six of its own attention calls (prefill and
+   decode, first and last layers) held to the plain versions, and picks,
+   latencies, outcomes and ``report()`` equal to a second run on the plain
+   attention (the executor's latency is the network trace's, so these do
+   not depend on the attention's output); (b) ``serve_online`` at its
+   defaults (4 replicas, SONAR-LB, Poisson 200 rps over 1 s, max_batch 16,
+   max_wait_ms 5) and at 10,005 replicas, with ``--trace``, ``--metrics-json`` (a temporary
+   directory) and ``--dashboard`` (a buffer): offered = routed + shed +
+   expired, the registry's and the folded device route stats' counts equal
+   the results', picks per replica exact, the BM25, QoS and fused stage-2
+   kernels launched and the fused selection not; (c) phase 3e's sharded
+   pump replay with ``Observability(trace=True, jit_stats=True)``: the fold
+   equal to the results' tally, the drain under
+   ``set_sync_debug_mode("error")``; (d) ``benchmarks/obs_overhead.py``'s
+   A/B (3 interleaved trials a side, flash crowd at 0.75x the batch-oracle
+   rate, 4 replicas): both p99s and the overhead, printed, not gated;
 4. times: each kernel's median over CUDA-event-timed launches beside its
    plain version, one library call where there is one, and its bound; the
    end-to-end ``route_texts`` time per batch on both paths; a profile of one
@@ -109,7 +137,8 @@ gates run through ``FleetTrafficSim`` and ``SessionTrafficSim``.
    its copy and the route apart), the same turn under phase 3f's chaos
    schedule (SONAR-FT with per-query telemetry ages) and one pump flush of
    32 requests on each gateway, with profiles, and replays with the flush
-   time measured.
+   time measured; one flush of 16 requests of phase 3g (b)'s online
+   gateway at 10,005 replicas, with a profile.
 
 The line before the last is the ``kernels`` JSON object; the last is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
@@ -859,11 +888,13 @@ def main(rehearse: bool) -> None:
                 "equal, C, N, S bit-equal to the plain version")
         max_err["fused_select"] = 0.0
 
-        # the attention kernels at the serving path's shapes: flash prefill of
+        # the attention kernels at the serving paths' shapes: flash prefill of
         # 16 query heads against 8 kv heads, head_dim 128, causal, in the
-        # model's [B, S, H, D] layout as strided views (S_att and a ragged
-        # S_att/2 - 24); flash decode of 8 slots against [8, S_att, 8, 128]
-        # caches (strided views) with lengths 1 .. S_att
+        # model's [B, S, H, D] layout as strided views (phase 3c's S_att and a
+        # ragged S_att/2 - 24, phase 3g (a)'s 16-token prompts); flash decode
+        # against caches as strided views: phase 3c's 8 slots of cap S_att
+        # with lengths 1 .. S_att, phase 3g (a)'s 4 slots of cap 256 with
+        # lengths 17 .. 23
         ga = torch.Generator(device=dev).manual_seed(11)
 
         def attn_rand(shape, dt):
@@ -872,30 +903,36 @@ def main(rehearse: bool) -> None:
         att_err = {}
         for dt in (torch.bfloat16, torch.float32):
             tol = ATTN_TOL[str(dt).split(".")[1]]
-            for S in (S_att, S_att // 2 - 24):
+            for S in (S_att, S_att // 2 - 24, 16):
                 q, k, v = attn_rand((1, S, 16, 128), dt), attn_rand((1, S, 8, 128), dt), attn_rand((1, S, 8, 128), dt)
                 got = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
                 want = kref.mha_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                     sm_scale=1 / math.sqrt(128), causal=True)
                 sync()
                 att_err["flash_attention", dt, S] = attn_close(got, want, tol, f"flash {dt} S {S}")
-            qd = attn_rand((8, 16, 128), dt)
-            kc, vc = attn_rand((8, S_att, 8, 128), dt), attn_rand((8, S_att, 8, 128), dt)
-            lens_d = torch.tensor([1, S_att, 63, 64, 65, S_att // 2 - 24, S_att - 1, 200],
-                                  dtype=torch.int32, device=dev)
-            got = ops.decode_attention(qd, kc.transpose(1, 2), vc.transpose(1, 2), lens_d)
-            want = kref.decode_ref(qd.reshape(8, 8, 2, 128), kc.transpose(1, 2),
-                                   vc.transpose(1, 2), lens_d.reshape(8, 1),
-                                   sm_scale=1 / math.sqrt(128)).reshape(8, 16, 128)
-            sync()
-            att_err["decode_attention", dt, S_att] = attn_close(got, want, tol, f"decode {dt}")
+            for cap_, lens in ((S_att, [1, S_att, 63, 64, 65, S_att // 2 - 24, S_att - 1, 200]),
+                               (256, [17, 19, 21, 23])):
+                nb = len(lens)
+                qd = attn_rand((nb, 16, 128), dt)
+                kc, vc = attn_rand((nb, cap_, 8, 128), dt), attn_rand((nb, cap_, 8, 128), dt)
+                lens_d = torch.tensor(lens, dtype=torch.int32, device=dev)
+                got = ops.decode_attention(qd, kc.transpose(1, 2), vc.transpose(1, 2), lens_d)
+                want = kref.decode_ref(qd.reshape(nb, 8, 2, 128), kc.transpose(1, 2),
+                                       vc.transpose(1, 2), lens_d.reshape(nb, 1),
+                                       sm_scale=1 / math.sqrt(128)).reshape(nb, 16, 128)
+                sync()
+                att_err["decode_attention", dt, cap_, nb] = attn_close(
+                    got, want, tol, f"decode {dt} {nb} slots cap {cap_}")
         for name in ("flash_attention", "decode_attention"):
             # the JSON's error is the serving path's dtype's (bf16)
-            max_err[name] = max(e for (n, dt, _), e in att_err.items()
+            max_err[name] = max(e for (n, dt, *_), e in att_err.items()
                                 if n == name and dt == torch.bfloat16)
         log("phase 2: attention kernels vs plain versions, max abs err (tolerance rtol = atol = "
-            f"{ATTN_TOL}): " + "; ".join(f"{n} {str(dt).split('.')[1]} S {S}: {e:.3g}"
-                                          for (n, dt, S), e in att_err.items()))
+            f"{ATTN_TOL}): " + "; ".join(
+                f"{n} {str(dt).split('.')[1]} "
+                + (f"S {shape[0]}" if n == "flash_attention"
+                   else f"{shape[1]} slots cap {shape[0]}") + f": {e:.3g}"
+                for (n, dt, *shape), e in att_err.items()))
         d_single = make_engine("sonar_ft", servers, mcfg, device=dev, index=index).route_texts(
             batches[0], **ft_kw)
     log(f"phase 2: kernels agree with their plain versions: {max_err}")
@@ -1501,6 +1538,285 @@ def main(rehearse: bool) -> None:
             f"[{smi_tag}]: {verdict}")
     log(f"phase 3f: {time.perf_counter() - t_3f:.1f} s in all")
 
+    # ----------------------------------------------------------------- 3g
+    # the serving launcher and the device-side observability: (a) the sync
+    # launcher over internlm2-1.8b replicas at full width (the attention
+    # kernels), with the audit tap; (b) the online launcher at 4 and at the
+    # fleet's 10,005 replicas (the routing kernels) with the device route
+    # stats, trace, metrics JSON and dashboard; (c) phase 3e's sharded pump
+    # replay with the device route stats (the fused selection); (d) what the
+    # instrumentation costs at the serving knee (benchmarks/obs_overhead.py's
+    # method)
+    import io
+    import tempfile
+
+    from repro_torch.core import latency as latlib
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.obs import Observability
+
+    t_3g = time.perf_counter()
+
+    # (a) the sync launcher: 4 replicas sharing one set of weights, 4 slots,
+    # cap 256, 24 requests of 8 new tokens, hybrid profiles; the same run
+    # with the plain attention (attn_impl="chunked") for the picks.  The
+    # launcher's executor returns the network trace's latency and drops the
+    # engine's output, so equal picks say nothing of the attention: the
+    # kernel run keeps copies of the inputs of a few of its own attention
+    # calls (request 0's prefill at the first and last layer, the last
+    # request's at the last; the first decode step, request 0's last, the
+    # run's last), held to the plain versions after the counts are read
+    sargs = launch_serve.build_parser().parse_args([
+        "--n-replicas", "4", "--n-slots", "4", "--n-requests", "24", "--max-new-tokens", "8",
+        "--scenario", "hybrid", "--quiet"])
+    L_ = lm_cfg.n_layers
+    keep_calls = {"flash_attention": {0, L_ - 1, 24 * L_ - 1},
+                  "decode_attention": {0, 7 * L_ - 1, 24 * 7 * L_ - 1}}
+    att_calls = {}
+
+    def keep_attention_inputs():
+        real = {name: getattr(ops, name) for name in keep_calls}
+
+        def grab(name):
+            seen = [0]
+
+            def call(*a, **k):
+                if seen[0] in keep_calls[name]:
+                    att_calls[name, seen[0]] = ([x.clone() for x in a], k)
+                seen[0] += 1
+                return real[name](*a, **k)
+            return call
+
+        for name in keep_calls:
+            setattr(ops, name, grab(name))
+        return real
+
+    sync_runs = {}
+    for impl, cfg_ in (("pallas", lm_cfg), ("chunked", plain_cfg)):
+        obs_a = Observability(trace=True, audit=True)
+        real_attn = keep_attention_inputs() if impl == "pallas" else {}
+        sync()
+        ops.reset_launches()                   # phase 3g (a)'s count starts here
+        t0 = time.perf_counter()
+        try:
+            gw_a = launch_serve.serve_sync(sargs, cfg=cfg_, obs=obs_a, device=dev)
+            sync()
+        finally:
+            for name, fn in real_attn.items():
+                setattr(ops, name, fn)
+        wall = time.perf_counter() - t0
+        la = ops.launch_counts()                # ... and is read here
+        spans = [e for e in obs_a.tracer.events if e.get("cat") == "engine" and e["ph"] == "X"]
+        loop_s = (max(e["ts"] + e["dur"] for e in spans) - min(e["ts"] for e in spans)) / 1e6
+        reg = obs_a.registry
+        sync_runs[impl] = dict(
+            picks=[(r.replica_idx, r.latency_ms, r.ok, r.expertise, r.network)
+                   for r in gw_a.stats],
+            report=gw_a.report(), audits=list(obs_a.audit_tap.records), launches=la,
+            wall=wall, loop_s=loop_s, admitted=int(reg.value("engine_admitted_total")),
+            steps=int(reg.value("engine_steps_total")),
+            tokens=int(reg.value("engine_tokens_total")))
+        del gw_a, obs_a
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    ka, pa = sync_runs["pallas"], sync_runs["chunked"]
+    want_a = {"flash_attention": lm_cfg.n_layers * ka["admitted"],
+              "decode_attention": lm_cfg.n_layers * ka["steps"]}
+    if ka["admitted"] != 24 or ka["tokens"] != 24 * 8:
+        fail(f"phase 3g (a): {ka['admitted']} requests admitted, {ka['tokens']} tokens")
+    check_launches(ka["launches"], want_a, "the sync launcher (3g a)")
+    if any(pa["launches"].values()):
+        fail(f"phase 3g (a): the plain path launched a kernel: {pa['launches']}")
+    if ka["picks"] != pa["picks"] or ka["report"] != pa["report"]:
+        fail("phase 3g (a): the picks, latencies, outcomes or report differ between the "
+             "kernel and plain attention")
+    if sorted(att_calls) != sorted((n, i) for n, idx in keep_calls.items() for i in idx):
+        fail(f"phase 3g (a): kept the inputs of attention calls {sorted(att_calls)}")
+    att_a = {}
+    with torch.no_grad():
+        for (name, i), (a, k) in sorted(att_calls.items()):
+            if name == "flash_attention":
+                want = kref.mha_ref(*a, sm_scale=1 / math.sqrt(a[0].shape[-1]), causal=True)
+                what = f"B {a[0].shape[0]}, S {a[0].shape[2]}"
+            else:
+                q_, k_, v_, lens_ = a
+                nb, hq, hd = q_.shape
+                want = kref.decode_ref(q_.reshape(nb, k_.shape[1], hq // k_.shape[1], hd), k_, v_,
+                                       lens_.reshape(nb, 1),
+                                       sm_scale=1 / math.sqrt(hd)).reshape(nb, hq, hd)
+                what = f"{nb} slots, cap {k_.shape[2]}, lengths {lens_.tolist()}"
+            got = getattr(ops, name)(*a, **k)
+            sync()
+            att_a[name, i] = (what, attn_close(got, want, ATTN_TOL["bfloat16"],
+                                               f"phase 3g (a): {name} call {i} ({what})"))
+            max_err[name] = max(max_err[name], att_a[name, i][1])
+    del att_calls
+    if len(ka["audits"]) != 24:
+        fail(f"phase 3g (a): {len(ka['audits'])} audit records for 24 requests")
+    for i, (a, (idx, _, _, c_, n_)) in enumerate(zip(ka["audits"], ka["picks"])):
+        if not np.array_equal(a.recompose(), a.fused) or a.winning_score() != float(
+                a.fused[a.best]) or a.server_idx != idx or (
+                float(a.expertise[a.best]), float(a.network[a.best])) != (c_, n_):
+            fail(f"phase 3g (a): the audit of request {i} does not recompose its decision")
+    log(f"phase 3g (a): sync launcher, {lm_cfg.name} ({lm_cfg.n_layers} layers, d_model "
+        f"{lm_cfg.d_model}, {lm_cfg.dtype}) x 4 replicas: 24 requests, {ka['steps']} decode "
+        f"steps; serve_sync {ka['wall']:.2f} s wall (weights drawn, engines built), request "
+        f"loop {ka['loop_s']:.3f} s from the engine spans = {1e3 * ka['loop_s'] / 24:.1f} ms "
+        f"per request, {ka['tokens'] / ka['loop_s']:.1f} tokens/s (host clock) [{smi_tag}]; "
+        f"plain attention: loop {pa['loop_s']:.3f} s; launches {ka['launches']}; picks, "
+        f"latencies, outcomes and report equal (network latencies, not the engines' output); "
+        f"24 audits recompose bit for bit; the path's own attention calls against the plain "
+        f"versions (bf16, rtol = atol = {ATTN_TOL['bfloat16']}), max abs err: "
+        + "; ".join(f"{n} call {i} ({w}) {e:.3g}" for (n, i), (w, e) in att_a.items()))
+
+    # (b) the online launcher at its defaults (4 replicas, sonar_lb, Poisson
+    # 200 rps over 1 s, max_batch 16, max_wait_ms 5; the whole second's
+    # schedule) and at the fleet's 10,005 replicas
+    tmp_3g = tempfile.TemporaryDirectory(prefix="chip_smoke_3g_")
+    online = {}
+    for n_rep in (4, n_s):
+        trace_p = f"{tmp_3g.name}/trace_{n_rep}.json"
+        metrics_p = f"{tmp_3g.name}/metrics_{n_rep}.json"
+        oargs = launch_serve.build_parser().parse_args([
+            "--mode", "online", "--n-replicas", str(n_rep), "--n-requests", "0", "--quiet",
+            "--trace", trace_p, "--metrics-json", metrics_p, "--dashboard"]
+            + (["--horizon-s", "0.2"] if rehearse else []))
+        buf = io.StringIO()
+        sync()
+        ops.reset_launches()                   # phase 3g (b)'s count starts here
+        t0 = time.perf_counter()
+        summary, results, gw_b = launch_serve.serve_online(oargs, device=dev,
+                                                           dashboard_stream=buf)
+        sync()
+        wall = time.perf_counter() - t0
+        lb = ops.launch_counts()                # ... and is read here
+        what = f"phase 3g (b): online launcher at {n_rep} replicas"
+        routed = [r for r in results if not (r.shed or r.expired)]
+        stats = gw_b.obs.fold_route_stats()
+        if summary["offered"] != summary["routed"] + summary["shed"] + summary["expired"] \
+                or summary["offered"] != len(results) or summary["routed"] != len(routed):
+            fail(f"{what}: offered != routed + shed + expired: {summary}")
+        if summary["registry_routed"] != summary["routed"] or not routed:
+            fail(f"{what}: the registry counts {summary['registry_routed']} routed, the results "
+                 f"{summary['routed']}")
+        tally = np.bincount([r.replica_idx for r in routed], minlength=n_rep)
+        if stats["n_routed"] != summary["routed"] or not np.array_equal(stats["picks"], tally):
+            fail(f"{what}: the device route stats ({stats['n_routed']:.0f} routed) differ from "
+                 f"the results' tally ({summary['routed']})")
+        with open(trace_p) as f:
+            n_events = len(json.load(f)["traceEvents"])
+        with open(metrics_p) as f:
+            saved = json.load(f)
+        if n_events == 0 or saved.get("route_stats", {}).get("n_routed") != stats["n_routed"]:
+            fail(f"{what}: {n_events} trace events; metrics JSON route_stats "
+                 f"{saved.get('route_stats', {}).get('n_routed')}")
+        if "mean C / N / S" not in buf.getvalue():
+            fail(f"{what}: the dashboard has no 'mean C / N / S' row")
+        if not rehearse and (not all(lb[k] for k in ("bm25_scores", "qos_scores",
+                                                     "fused_score_select"))
+                             or lb["fused_select"]):
+            fail(f"{what}: launches {lb}")
+        online[n_rep] = gw_b
+        log(f"{what}: {summary['offered']} offered, {summary['routed']} routed, "
+            f"{summary['shed']} shed, {summary['expired']} expired in {summary['flushes']} "
+            f"flushes; serve p50 {summary['p50_ms']} ms, p99 {summary['p99_ms']} ms (host "
+            f"clock), {wall:.2f} s wall with the gateway's build [{smi_tag}]; device route stats "
+            f"equal the results' tally (mean C / N / S {stats['mean_expertise']:.4f} / "
+            f"{stats['mean_network']:.4f} / {stats['mean_fused']:.4f}); {n_events} trace "
+            f"events; launches {lb}")
+    tmp_3g.cleanup()
+    gw_online = online.pop(n_s)                 # phase 4 profiles one of its flushes
+    del online
+
+    # (c) phase 3e's sharded pump replay (SONAR, 10,005 replicas, shards=4)
+    # with the device route stats on: the fold equals the results' tally,
+    # and the drain makes no host sync
+    obs_c = Observability(trace=True, jit_stats=True)
+    gw_c = SonarGateway(replicas, profiles=rep_profiles, algo="sonar", seed=0, use_kernels=True,
+                        shards=4, device=dev, obs=obs_c)
+    sync()
+    ops.reset_launches()                       # phase 3g (c)'s count starts here
+    pump_c = MicroBatchPump(gw_c, policy, service_ms=lambda texts: 1.0)
+    rep_c = pump_c.replay(sched)
+    texts20 = [GATEWAY_TEXTS[i % len(GATEWAY_TEXTS)] for i in range(20)]
+    extra = gw_c.route_batch(texts20, pad_to=32)      # one padded call left pending
+    if dev.type == "cuda":
+        torch.cuda.set_sync_debug_mode("error")      # any host sync raises
+    try:
+        obs_c.drain_route_stats()
+    finally:
+        if dev.type == "cuda":
+            torch.cuda.set_sync_debug_mode(0)
+    lc = ops.launch_counts()                    # ... and is read here
+    stats_c = obs_c.fold_route_stats()
+    tally_c = np.bincount([r.replica_idx for r in pump_c.results.values()
+                           if not (r.shed or r.expired)] + [r.replica_idx for r in extra],
+                          minlength=n_s)
+    n_c = rep_c.n_routed + len(extra)
+    if stats_c["n_routed"] != n_c or not np.array_equal(stats_c["picks"], tally_c):
+        fail(f"phase 3g (c): the device route stats ({stats_c['n_routed']:.0f} routed) differ "
+             f"from the pump's tally ({n_c})")
+    host_c = np.mean([r.expertise for r in gw_c.stats])
+    if not np.isclose(stats_c["mean_expertise"], host_c, rtol=1e-6, atol=1e-6):
+        fail(f"phase 3g (c): mean C {stats_c['mean_expertise']} against the host's {host_c}")
+    if not rehearse and not lc["fused_select"]:
+        fail(f"phase 3g (c): fused_select never launched: {lc}")
+    log(f"phase 3g (c): sharded pump replay (sonar, {n_s} replicas, shards=4) with device route "
+        f"stats: {rep_c.n_routed} routed in {rep_c.n_flushes} flushes + 20 in one padded call; "
+        f"the fold equals the tally, picks exact, mean C {stats_c['mean_expertise']:.6f} "
+        f"(host {host_c:.6f}); "
+        + ("drain under set_sync_debug_mode('error'); " if dev.type == "cuda" else "")
+        + f"{len(obs_c.tracer.events)} trace events; launches {lc}")
+    del gw_c, pump_c, obs_c
+
+    # (d) the instrumentation's cost: benchmarks/obs_overhead.py's method.
+    # The batch-oracle QPS of 4 replicas (512 requests in padded batches of
+    # 16), then 3 interleaved trials a side of a flash-crowd MicroBatchPump
+    # replay at 0.75x that rate (flush times measured): the default
+    # Observability() against Observability(trace=True, jit_stats=True)
+    def oh_gateway(obs=None):
+        return SonarGateway(replica_pool([("yi-6b", "dense")] * 4),
+                            profiles=[latlib.ideal_profile() for _ in range(4)],
+                            algo="sonar_lb", seed=0, use_kernels=True, device_telemetry=True,
+                            obs=obs, device=dev)
+
+    oh_texts = [BENCH_TEXTS[i % len(BENCH_TEXTS)] for i in range(512)]
+    gw_d = oh_gateway()
+    gw_d.route_batch(oh_texts[:16], pad_to=16)
+    gw_d.route_batch(oh_texts[:8], pad_to=16)
+    sync()
+    t0 = time.perf_counter()
+    for lo in range(0, 512, 16):
+        gw_d.route_batch(oh_texts[lo:lo + 16], pad_to=16)
+    sync()
+    oracle_qps = 512 / (time.perf_counter() - t0)
+    oh_rate = 0.75 * oracle_qps
+    oh_policy = BatchingPolicy(max_batch=16, max_wait_ms=2.0, slack_ms=0.0, queue_limit=4096,
+                               pad_batches=True)
+    oh_horizon = 0.1 if rehearse else 1.0
+    arm_obs = {"default": dict(), "trace + stats": dict(trace=True, jit_stats=True)}
+
+    def oh_trial(seed, kw):
+        pump_d = MicroBatchPump(oh_gateway(Observability(**kw)), oh_policy)
+        pump_d.replay(request_schedule(
+            "flash_crowd", torch.Generator(device=dev).manual_seed(seed), oh_rate,
+            oh_horizon, list(BENCH_TEXTS), spike_factor=3.0))
+        return [r.t_done_ms - r.t_arrival_ms for r in pump_d.results.values()
+                if not (r.shed or r.expired)]
+
+    lat_d = {k: [] for k in arm_obs}
+    for t in range(3):
+        for name in (list(arm_obs) if t % 2 == 0 else list(arm_obs)[::-1]):
+            lat_d[name] += oh_trial(t, arm_obs[name])
+    p99_d = {k: float(np.percentile(np.asarray(v, np.float64), 99)) for k, v in lat_d.items()}
+    log(f"phase 3g (d): instrumentation cost (obs_overhead's method, sonar_lb, 4 replicas, "
+        f"device ring): batch-oracle {oracle_qps:.0f} req/s, flash crowd at {oh_rate:.0f} "
+        f"req/s over {oh_horizon} s, 3 interleaved trials a side: p99 default "
+        f"{p99_d['default']:.3f} ms, trace + device route stats {p99_d['trace + stats']:.3f} "
+        f"ms, overhead {100.0 * (p99_d['trace + stats'] / p99_d['default'] - 1.0):+.2f} % "
+        f"(pump virtual clock of measured flushes; not gated) [{smi_tag}]")
+    del gw_d
+    log(f"phase 3g: {time.perf_counter() - t_3g:.1f} s in all")
+
     # ------------------------------------------------------------------ 4
     def timed(fn, n=reps):
         """Median ms of ``n`` calls after two warm-up calls (CUDA events on the card)."""
@@ -1879,6 +2195,21 @@ def main(rehearse: bool) -> None:
             profile(f"one pump flush of 32 requests (gateway {algo} shards={shards}) "
                     f"[{smi_tag}]", lambda: gw4.route_batch(texts32, pad_to=32), routing,
                     calls=1)
+
+    # one flush of the online launcher's gateway at 10,005 replicas (phase
+    # 3g (b)): 16 requests padded to max_batch, SONAR-LB in chunks of 8 on
+    # the device ring, the device route stats on
+    q16 = launch_serve.QUERIES * 4
+    oflush_ms = host_ms(lambda: gw_online.route_batch(q16, pad_to=16), n4)
+    ph = dict(gw_online.last_flush_phases)
+    log(f"phase 4: one online-launcher flush of 16 requests (sonar_lb, {n_s} replicas, device "
+        f"ring, device route stats): {oflush_ms:.3f} ms wall (median of {n4}, host clock); "
+        f"last one's encode / dispatch / merge {ph['encode']:.3f} / {ph['dispatch']:.3f} / "
+        f"{ph['merge']:.3f} ms [{smi_tag}]")
+    if dev.type == "cuda":
+        profile(f"one online-launcher flush of 16 requests ({n_s} replicas) [{smi_tag}]",
+                lambda: gw_online.route_batch(q16, pad_to=16), routing, calls=1)
+    del gw_online
 
     # the serving path's two calls at internlm2-1.8b's full width: one
     # prefill of 1536 tokens, one decode step of 8 slots at cache_len 1536

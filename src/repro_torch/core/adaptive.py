@@ -98,11 +98,12 @@ class AdaptiveSonarRouter:
         telemetry_age_s: Optional[np.ndarray] = None,
         failed_mask: Optional[np.ndarray] = None,
         client_rtt_ms: Optional[np.ndarray] = None,
+        audit=None,
     ) -> Decision:
         self._router.cfg = self.cfg
         return self._router.select(
             query, latency_hist, server_load, telemetry_age_s=telemetry_age_s,
-            failed_mask=failed_mask, client_rtt_ms=client_rtt_ms,
+            failed_mask=failed_mask, client_rtt_ms=client_rtt_ms, audit=audit,
         )
 
     def observe(self, latency_ms: float, online: bool):
@@ -339,12 +340,14 @@ class SonarAdaptRouter(SonarGeoRouter):
         failed_mask: Optional[np.ndarray] = None,
         client_rtt_ms: Optional[np.ndarray] = None,
         affinity: Optional[np.ndarray] = None,
+        audit=None,
     ) -> Decision:
         if self.adapt_cfg.lr != 0.0:
             self.cfg = weights_cfg(self.base_cfg, self.state)
         d = super().select(
             query, latency_hist, server_load, telemetry_age_s=telemetry_age_s,
             failed_mask=failed_mask, client_rtt_ms=client_rtt_ms, affinity=affinity,
+            audit=audit,
         )
         # stash f = [C, N, -U, -R] at the winner for the next observe()
         u = 0.0

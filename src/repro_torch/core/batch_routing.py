@@ -125,19 +125,10 @@ class BatchDecisions:
         return len(self.server_idx)
 
 
-ROUTE_STATS_NOT_PORTED = (
-    "repro_torch: route_stats (device route statistics) comes with the "
-    "observability slice of the port (ROADMAP.md queue 1, item 10)"
-)
-
-
-def check_route_stats(batch: EncodedBatch, route_stats, n_real) -> None:
-    """The engines' ``route_stats`` / ``n_real`` arguments: the device
-    route statistics are not ported, so only None is accepted; ``n_real``
-    (the count of real rows ahead of the all-zero padding rows of a padded
-    call, which the statistics would leave out) must lie in [0, batch.n]."""
-    if route_stats is not None:
-        raise NotImplementedError(ROUTE_STATS_NOT_PORTED)
+def check_n_real(batch: EncodedBatch, n_real) -> None:
+    """``n_real``, the count of real rows ahead of the all-zero padding rows
+    of a padded call (the device route statistics leave the padding out),
+    must lie in [0, batch.n]."""
     if n_real is not None and not 0 <= int(n_real) <= batch.n:
         raise ValueError(f"n_real={n_real} outside [0, {batch.n}]")
 
@@ -430,15 +421,17 @@ class BatchRoutingEngine:
         with ``region_rtt_ms`` [n_regions, n_servers] (SONAR-GEO, ignored
         when ``client_rtt_ms`` is given).  Each is read only by the
         algorithms that use it.  numpy arrays or tensors.
-        ``route_stats`` (device route statistics, not ported) must be None;
+        ``route_stats`` (a `repro_torch.obs.DeviceRouteStats`) is handed
+        this call's device outputs before they are copied to the host;
         ``n_real`` counts the real rows of a call padded with all-zero query
-        rows (`EncodedBatch.pad_to`), which route like any other row.
+        rows (`EncodedBatch.pad_to`), which route like any other row and
+        which the statistics leave out.
 
         Returns struct-of-arrays decisions, each [n_q], argmax-identical to
         a scalar `Router.select` loop over the same inputs.  Deterministic.
         SONAR-ADAPT with ``lr != 0`` first applies the pending feedback.
         """
-        check_route_stats(batch, route_stats, n_real)
+        check_n_real(batch, n_real)
         if batch.n == 0:
             z = np.zeros((0,), np.float32)
             return BatchDecisions(
@@ -495,6 +488,8 @@ class BatchRoutingEngine:
                 use_kernels=self.use_kernels,
                 qos_params=cfg.qos,
             )
+        if route_stats is not None:
+            route_stats.accumulate(server_idx, c, n, s, n_real=n_real)
         return BatchDecisions(
             server_idx=server_idx.cpu().numpy(),
             tool_idx=tool_idx.cpu().numpy(),

@@ -56,7 +56,7 @@ from repro_torch.core import bm25, quantize, routing
 from repro_torch.core.batch_routing import (
     BatchDecisions,
     EncodedBatch,
-    check_route_stats,
+    check_n_real,
     encode_for_index,
 )
 from repro_torch.core.bm25 import topk
@@ -765,7 +765,7 @@ class ShardedRoutingEngine:
         n_servers])`` keeps the RTT input compact the same way.
         ``route_stats`` and ``n_real`` as `BatchRoutingEngine.route`.
         """
-        check_route_stats(batch, route_stats, n_real)
+        check_n_real(batch, n_real)
         if batch.n == 0:
             z = np.zeros((0,), np.float32)
             return BatchDecisions(
@@ -825,6 +825,9 @@ class ShardedRoutingEngine:
             dyn["adapt_w"] = adapt_w
         with torch.profiler.record_function("netmcp.route_sharded"):
             server_idx, tool_idx, c, n, s = _route_sharded(dyn, self._sc)
+        if route_stats is not None:
+            # this call's device outputs, before any host conversion
+            route_stats.accumulate(server_idx, c, n, s, n_real=n_real)
         return BatchDecisions(
             server_idx=server_idx.cpu().numpy().astype(np.int32),
             tool_idx=tool_idx.cpu().numpy().astype(np.int32),

@@ -282,6 +282,7 @@ class Router:
         failed_mask: Optional[np.ndarray] = None,
         client_rtt_ms: Optional[np.ndarray] = None,
         affinity: Optional[np.ndarray] = None,
+        audit=None,
     ) -> Decision:
         """Route one query (Algorithm 1): two-stage retrieval, Eq. 5
         softmax expertise, QoS/load/staleness/locality/affinity fusion,
@@ -289,7 +290,9 @@ class Router:
         ms (newest last), ``server_load`` utilization, ``telemetry_age_s``
         seconds, ``failed_mask`` bool, ``client_rtt_ms`` ms, ``affinity``
         warmth in [0, 1].  Each is read only by the algorithms that use it;
-        None reduces the fusion to the simpler variant.  Deterministic."""
+        None reduces the fusion to the simpler variant.  An ``audit``
+        (`repro_torch.obs.AuditTap`) records the arrays the argmax fused.
+        Deterministic."""
         qtext, sl = self._preprocess(query)
         fm = failed_mask if self.uses_failover else None
         cand_servers, cand_tools, scores = self._candidates(qtext, fm)
@@ -308,7 +311,8 @@ class Router:
 
         C = self._expertise(scores)
 
-        if self.uses_network and latency_hist is not None:
+        network_used = self.uses_network and latency_hist is not None
+        if network_used:
             hist = np.asarray(latency_hist)[cand_hosts]
             N = network_score(_cpu(hist), self.cfg.qos).numpy()
             if self.uses_staleness and telemetry_age_s is not None:
@@ -321,20 +325,24 @@ class Router:
             N = np.zeros_like(C)
             S = C
 
+        U = None
         if self.uses_load and server_load is not None and self.cfg.gamma != 0.0:
             rho = np.asarray(server_load, np.float32)[cand_hosts]
-            U = load_penalty(_cpu(rho), self.cfg.load_knee, self.cfg.load_sharp)
-            S = S - self.cfg.gamma * U.numpy()
+            U = load_penalty(_cpu(rho), self.cfg.load_knee, self.cfg.load_sharp).numpy()
+            S = S - self.cfg.gamma * U
 
+        R = None
         if self.uses_rtt and client_rtt_ms is not None and self.cfg.delta != 0.0:
             rtt = np.asarray(client_rtt_ms, np.float32)[cand_hosts]
             R = rtt_penalty(_cpu(rtt), self.cfg.rtt_scale_ms).numpy()
             S = S - self.cfg.delta * R
 
+        A = None
         if self.uses_affinity and affinity is not None and self.cfg.eps != 0.0:
             A = np.asarray(affinity, np.float32)[cand_hosts]
             S = S + self.cfg.eps * A
 
+        dead = None
         if self.uses_failover and failed_mask is not None:
             # known-failed servers are removed from the argmax but keep
             # their softmax mass
@@ -343,7 +351,7 @@ class Router:
 
         best = int(np.argmax(S))
         tool_idx = int(cand_tools[best])
-        return Decision(
+        decision = Decision(
             server_idx=int(self.index.tool_server[tool_idx]),
             tool_idx=tool_idx,
             expertise=float(C[best]),
@@ -353,6 +361,16 @@ class Router:
             candidate_servers=[int(s) for s in cand_servers],
             candidate_tools=[int(t) for t in cand_tools],
         )
+        if audit is not None:
+            audit.record(
+                algo=self.name, query=query, cfg=self.cfg,
+                cand_servers=cand_servers, cand_tools=cand_tools,
+                cand_hosts=cand_hosts, expertise=C,
+                network=N if network_used else None,
+                load_pen=U, rtt_pen=R, dead=dead, fused=S,
+                best=best, decision=decision, aff_bonus=A,
+            )
+        return decision
 
     def select_failover(
         self,
@@ -365,11 +383,14 @@ class Router:
         budget: Optional[int] = None,
         client_rtt_ms: Optional[np.ndarray] = None,
         affinity: Optional[np.ndarray] = None,
+        audit=None,
     ) -> tuple[Decision, int]:
         """Failover loop (SONAR-FT): route, probe the pick against `alive`,
         and on a dead pick re-route with that server masked out — at most
         `budget` (default cfg.failover_budget) extra routes.  Returns the
-        final decision and the number of failovers taken."""
+        final decision and the number of failovers taken.  An ``audit`` tap
+        records every hop, so a failover chain reads as consecutive
+        records."""
         budget = self.cfg.failover_budget if budget is None else int(budget)
         n_servers = len(self.index.servers)
         mask = (
@@ -386,6 +407,7 @@ class Router:
                 failed_mask=mask if mask.any() else None,
                 client_rtt_ms=client_rtt_ms,
                 affinity=affinity,
+                audit=audit,
             )
             if up is None or up[d.server_idx] or failovers >= budget:
                 return d, failovers

@@ -1,0 +1,3 @@
+"""Entry points of the port, twin of `repro.launch`: `serve` (the SONAR
+gateway in front of a replica fleet, ``--mode sync`` or ``--mode online``).
+"""

@@ -8,9 +8,10 @@ the reference's names.  `Histogram` uses fixed log-scale buckets:
 from the bucket counts with the bucket's relative width
 (``10^(1/per_decade) - 1``, ~7.5 % at the default 32 buckets/decade).
 
-The reference's `DeviceRouteStats` (device-side routing stats) belongs to
-the routing engines' observability and is not ported yet (`ROADMAP.md`
-queue 1, item 10).
+`DeviceRouteStats` is the hot-path accumulator of the routing engines: one
+f32 buffer on the device of the engines' outputs, updated from their
+*device* tensors (picks, C/N/S sums) at flush boundaries, with no host
+sync; `fold` copies it to the host once.
 """
 from __future__ import annotations
 
@@ -18,8 +19,11 @@ import json
 import math
 from typing import Optional
 
+import torch
+
 __all__ = [
     "Counter",
+    "DeviceRouteStats",
     "Gauge",
     "Histogram",
     "MetricsRegistry",
@@ -215,3 +219,82 @@ class MetricsRegistry:
             payload.update(extra)
         with open(path, "w") as f:
             json.dump(payload, f, indent=2)
+
+
+class DeviceRouteStats:
+    """Per-route stats accumulated on the device, twin of
+    `repro.obs.metrics.DeviceRouteStats`.
+
+    Layout: one f32 vector ``[n_servers + 4]``: ``buf[:n_servers]`` pick
+    counts per server, then the count of routed requests and the running
+    sums of the winning C / N / S.  `accumulate` keeps references to an
+    engine call's device outputs (before any host conversion): an O(1)
+    list append, no launch and no host sync on the routing hot path.
+    `drain` adds everything pending in one batch of plain tensor ops on
+    the outputs' device (one `index_add_` of the picks, one update of the
+    four sums, however many calls are pending); `fold` drains and copies
+    the buffer to the host once.
+
+    Padded rows (the micro-batch ``pad_to`` path) are left out by
+    ``n_real``, a Python int: each call's outputs are sliced to their real
+    rows (views, nothing read back).  The buffer is made on the device of
+    the first tensors drained into it; until then a fold reads zeros.  Pick counts go
+    through float atomics on the card: exact below 2^24 picks a server.
+    The engines hand over freshly allocated outputs, which nothing writes
+    to afterwards, so a deferred drain reads the values of its own call
+    (on the CPU the returned decisions' arrays share that memory; no code
+    of the port writes into them).
+    """
+
+    # engine calls between folds before an inline drain (bounds the
+    # retained device tensors, far above any real flush cadence)
+    MAX_PENDING = 512
+
+    def __init__(self, n_servers: int):
+        self.n_servers = int(n_servers)
+        self._buf: Optional[torch.Tensor] = None
+        self._pending: list = []
+
+    def accumulate(self, server_idx: torch.Tensor, expertise: torch.Tensor,
+                   network: torch.Tensor, fused: torch.Tensor,
+                   n_real: Optional[int] = None) -> None:
+        """Record one engine call's device outputs (each ``[B]``) for the
+        next drain; ``n_real`` counts the real rows ahead of the padding
+        (None: every row).  `MAX_PENDING` is the inline backstop for
+        callers that never drain."""
+        self._pending.append((server_idx, expertise, network, fused, n_real))
+        if len(self._pending) >= self.MAX_PENDING:
+            self.drain()
+
+    def drain(self) -> None:
+        """Add the pending calls into the buffer on their device (tensor
+        ops queued on the card, no host sync).  The serving drivers call it
+        at flush boundaries, outside the latency-timed windows."""
+        pending, self._pending = self._pending, []
+        if not pending:
+            return
+        # each call's real rows as views: [:None] keeps them all
+        real = [[t[:call[4]] for t in call[:4]] for call in pending]
+        idx = torch.cat([r[0] for r in real]).long()
+        sums = torch.stack([torch.cat([r[j] for r in real]).float().sum() for j in (1, 2, 3)])
+        if self._buf is None:
+            self._buf = torch.zeros(self.n_servers + 4, dtype=torch.float32, device=idx.device)
+        self._buf.index_add_(0, idx, torch.ones(idx.shape[0], device=idx.device))
+        self._buf[-4] += idx.shape[0]
+        self._buf[-3:] += sums
+
+    def fold(self, reset: bool = True) -> dict:
+        """Drain, then one device->host copy; returns the folded stats."""
+        self.drain()
+        host = (torch.zeros(self.n_servers + 4).numpy() if self._buf is None
+                else self._buf.cpu().numpy().copy())
+        if reset:
+            self._buf = None
+        n = float(host[-4])
+        return {
+            "picks": host[: self.n_servers],
+            "n_routed": n,
+            "mean_expertise": float(host[-3]) / n if n else 0.0,
+            "mean_network": float(host[-2]) / n if n else 0.0,
+            "mean_fused": float(host[-1]) / n if n else 0.0,
+        }

@@ -422,6 +422,7 @@ class SonarGateway:
                 failed_mask=self._health_mask(),
                 client_rtt_ms=self._rtt_row(client_region),
                 affinity=aff,
+                audit=self.obs.audit_tap,
             )
         idx = decision.server_idx
         self.in_flight[idx] += 1.0
@@ -489,6 +490,7 @@ class SonarGateway:
                 failed_mask=self._health_mask(),
                 client_rtt_ms=self._rtt_row(client_region),
                 affinity=aff,
+                audit=self.obs.audit_tap,
             )
         idx = decision.server_idx
         if self.executor is not None:

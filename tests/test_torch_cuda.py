@@ -804,3 +804,65 @@ def test_chaos_batch_agent_kernel_path_equals_plain_path(cuda, algo):
     assert _records_key(rk) == _records_key(rp)
     np.testing.assert_array_equal(ok, op)
     assert any(r.n_failures for r in rk)
+
+
+@pytest.mark.parametrize("n_real", [None, 0, 37, 64])
+def test_device_route_stats_on_the_card_without_a_sync(cuda, n_real):
+    """`accumulate` and `drain` queue tensor ops on the card and never read
+    back (``set_sync_debug_mode("error")`` raises on any sync); the fold
+    equals the host tally, the picks exactly."""
+    from repro_torch.obs import DeviceRouteStats
+
+    rng = np.random.default_rng(5)
+    drs = DeviceRouteStats(1000)
+    calls = []
+    for _ in range(3):
+        idx = rng.integers(0, 1000, 64).astype(np.int32)
+        c, n, s = (rng.uniform(-1.0, 1.0, 64).astype(np.float32) for _ in range(3))
+        calls.append((idx, c, n, s))
+    dev_calls = [tuple(torch.from_numpy(a).to(cuda) for a in x) for x in calls]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for x in dev_calls:
+            drs.accumulate(*x, n_real=n_real)
+        drs.drain()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert drs._buf.device.type == "cuda"
+    out = drs.fold()
+    k = 64 if n_real is None else n_real
+    idx = np.concatenate([x[0][:k] for x in calls])
+    np.testing.assert_array_equal(out["picks"], np.bincount(idx, minlength=1000))
+    assert out["n_routed"] == len(idx)
+    for key, j in (("mean_expertise", 1), ("mean_network", 2), ("mean_fused", 3)):
+        host = np.concatenate([x[j][:k] for x in calls]).astype(np.float64)
+        # f32 sums of up to 192 values in [-1, 1] on the card, in another order
+        np.testing.assert_allclose(out[key], host.mean() if k else 0.0, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("shards", [None, 2])
+def test_gateway_route_stats_fold_equals_host_tally(cuda, shards):
+    """`SonarGateway(use_kernels=True, device_telemetry=True,
+    obs=Observability(jit_stats=True))`: padded flushes through the routing
+    kernels; the device fold equals the gateway's host tally of its picks."""
+    from repro_torch.obs import Observability
+    from repro_torch.serving.gateway import SonarGateway, replica_pool
+
+    reps = replica_pool([("yi-6b", "dense"), ("whisper-tiny", "audio")] * 15)
+    texts = ["search the web for the latest news", "transcribe this recording",
+             "generate a chat reply"]
+    obs = Observability(jit_stats=True)
+    gw = SonarGateway(reps, algo="sonar_lb", seed=2, use_kernels=True, device_telemetry=True,
+                      shards=shards, obs=obs, device=cuda)
+    ops.reset_launches()
+    for i in range(8):
+        gw.route_batch([texts[(i + j) % 3] for j in range(2 + i)], pad_to=16 if i % 2 else None)
+        obs.drain_route_stats()
+    assert ops.launch_counts()["fused_select" if shards else "fused_score_select"] > 0
+    out = obs.fold_route_stats()
+    picks = np.bincount([r.replica_idx for r in gw.stats], minlength=len(reps))
+    np.testing.assert_array_equal(out["picks"], picks)
+    assert out["n_routed"] == len(gw.stats) == sum(2 + i for i in range(8))
+    np.testing.assert_allclose(out["mean_expertise"],
+                               np.mean([r.expertise for r in gw.stats]), rtol=1e-6, atol=1e-6)

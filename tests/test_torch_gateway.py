@@ -28,7 +28,7 @@ from repro.traffic import arrivals as jarrivals
 from repro.traffic import source as jsource
 from repro_torch.core import latency
 from repro_torch.core.batch_routing import make_engine
-from repro_torch.obs import Observability, trace
+from repro_torch.obs import DeviceRouteStats, Observability, trace
 from repro_torch.serving import gateway
 from repro_torch.serving.frontend import AsyncServingGateway
 from repro_torch.serving.microbatch import BatchingPolicy, MicroBatcher, MicroBatchPump
@@ -463,7 +463,8 @@ def test_device_telemetry_ring_is_oldest_first(dtype):
 
 def test_padded_rows_keep_real_decisions_and_engine_arguments():
     """Zero-row padding leaves every real row's decision as the unpadded
-    call's; the engines take ``n_real`` and refuse device route stats."""
+    call's; the engines take ``n_real`` and fold only the real rows into
+    device route stats."""
     for algo in ("sonar", "sonar_lb", "sonar_ft"):
         for size in (1, 3, 5):
             a, b = _gateway(seed=7, algo=algo), _gateway(seed=7, algo=algo)
@@ -478,12 +479,17 @@ def test_padded_rows_keep_real_decisions_and_engine_arguments():
         assert len(d) == 5
         with pytest.raises(ValueError):
             eng.route(enc, tel, n_real=6)
-        with pytest.raises(NotImplementedError, match="observability"):
-            eng.route(enc, tel, route_stats=object())
+        drs = DeviceRouteStats(len(gw.replicas))
+        d = eng.route(enc, tel, route_stats=drs, n_real=3)
+        out = drs.fold()
+        np.testing.assert_array_equal(
+            out["picks"], np.bincount(d.server_idx[:3], minlength=len(gw.replicas)))
+        assert out["n_routed"] == 3.0
+        np.testing.assert_allclose(out["mean_fused"], d.fused[:3].mean(), rtol=1e-6)
     obs = Observability()
     assert obs.audit_tap is None and obs.ensure_route_stats(4) is None
-    with pytest.raises(NotImplementedError):
-        Observability(jit_stats=True)
+    on = Observability(jit_stats=True, audit=True)
+    assert on.audit_tap is not None and on.ensure_route_stats(4).n_servers == 4
 
 
 def test_gateway_needs_a_network_algorithm_and_a_card(monkeypatch):

@@ -39,6 +39,7 @@ from repro_torch.core.mesh_routing import (
     make_sharded_engine,
 )
 from repro_torch.core.routing import ToolIndex
+from repro_torch.obs import DeviceRouteStats
 from repro_torch.traffic import mega_fleet_index, replica_fleet
 
 RTOL, ATOL = 2e-6, 2e-7
@@ -349,8 +350,11 @@ def test_device_rule_mesh_route_stats_and_empty_batch(monkeypatch):
     assert len(dec) == 0 and dec.server_idx.dtype == np.int32
     with pytest.raises(NotImplementedError, match="mesh"):
         make_sharded_engine("sonar", index=idx, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="observability"):
-        eng.route(eng.encode(QUERY_TEXTS), route_stats=object())
+    drs = DeviceRouteStats(idx.n_servers)
+    d = eng.route(eng.encode(QUERY_TEXTS), route_stats=drs)
+    out = drs.fold()
+    np.testing.assert_array_equal(out["picks"], np.bincount(d.server_idx, minlength=idx.n_servers))
+    assert out["n_routed"] == len(QUERY_TEXTS)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_sharded_engine("sonar", index=idx)

@@ -267,10 +267,8 @@ def test_registry_grid_and_unported_families():
         cfg = model_config_from_dict(dataclasses.asdict(jconfigs.get_reduced(arch)))
         with pytest.raises(NotImplementedError, match="item 11"):
             get_model(cfg)
-    with pytest.raises(NotImplementedError):
-        Observability(jit_stats=True)
-    with pytest.raises(NotImplementedError):
-        Observability(audit=True)
+    on = Observability(jit_stats=True, audit=True)
+    assert on.audit_tap is not None and on.ensure_route_stats(3).n_servers == 3
 
 
 @pytest.mark.parametrize("arch", ARCHS)
