@@ -45,8 +45,11 @@ audit tap and the device route statistics on.
    shapes (flash prefill [1, 16, S, 128] against 8 kv heads in the model's
    strided layout, S 2048, 1000 and the launcher's 16; flash decode of 8
    slots against [8, 2048, 8, 128] caches with lengths 1 to 2048, and the
-   launcher's 4 slots against [4, 256, 8, 128] at lengths 17 to 23), bf16
-   and f32;
+   launcher's 4 slots against [4, 256, 8, 128] at lengths 17 to 23) and at
+   phase 3h's head layouts (deepseek-moe-16b's G = 1: flash [1, 16, S,
+   128] against 16 kv heads at S 2048 and 1000, decode of 8 slots against
+   [8, 2048, 16, 128]; llama4-scout's G = 5: flash [1, 40, S, 128] against
+   8 kv heads, decode of 4 slots against [4, 1024, 8, 128]), bf16 and f32;
 3. the single-device path with the launch counters set to 0: every
    kernel-path decision equal to the plain path's on the same card, every
    counter risen by exactly one launch per route, a per-query telemetry
@@ -119,6 +122,30 @@ audit tap and the device route statistics on.
    ``set_sync_debug_mode("error")``; (d) ``benchmarks/obs_overhead.py``'s
    A/B (3 interleaved trials a side, flash crowd at 0.75x the batch-oracle
    rate, 4 replicas): both p99s and the overhead, printed, not gated;
+3h. the MoE serving path, with the counters set to 0 before each serving
+   run: (a) deepseek-moe-16b at full width and depth (28 layers: the dense
+   prelude of d_ff 10944, then 27 MoE layers of 64 routed experts top-6 +
+   2 shared, 16/16 heads, bf16, weights drawn on the card from a seed, the
+   parameter count held to ``param_counts()``), 16 requests (prompts of 64
+   to 1536 tokens, 32 new each) through 8 slots of cap 2048 to ``drain``,
+   as in 3c, with both paths' expert choices logged: every request
+   finishes, ``flash_attention`` launches 28 times per admitted request and
+   ``decode_attention`` 28 times per decode step; the teacher-forced plain
+   path runs twice, once routing by itself (the (token, layer) pairs whose
+   expert sets differ counted, and ``SERVE_TOL``, the first tokens and the
+   argmax check held on the rows of logits where none differs) and once
+   with the kernel path's expert choices (its own still counted; every row
+   within ``SERVE_TOL``, every first token equal); (d) one of its MoE
+   layers ([2, 256, 2048]) run twice
+   on the card, bit for bit, and against its CPU run: slot, token_of and
+   the kept mask equal given the same router logits (and on the CPU's own
+   when they give the same expert sets), y within bf16 tolerance; (b) the same
+   model cut to 4 layers (the prelude + 3 MoE) in f32, 6 requests, every
+   expert choice equal on the two paths and the logits within
+   ``F32_SERVE_TOL``; (c) llama4-scout-17b-a16e at full width over 4 of
+   its 48 layers (16 experts top-1 + 1 shared, 40/8 heads), 8 requests
+   through 4 slots of cap 1024, the gates of (a).  Each model is freed
+   before the next is drawn;
 4. times: each kernel's median over CUDA-event-timed launches beside its
    plain version, one library call where there is one, and its bound; the
    end-to-end ``route_texts`` time per batch on both paths; a profile of one
@@ -138,7 +165,10 @@ audit tap and the device route statistics on.
    schedule (SONAR-FT with per-query telemetry ages) and one pump flush of
    32 requests on each gateway, with profiles, and replays with the flush
    time measured; one flush of 16 requests of phase 3g (b)'s online
-   gateway at 10,005 replicas, with a profile.
+   gateway at 10,005 replicas, with a profile; a profile of one 1536-token
+   prefill and one 8-slot decode step of deepseek-moe-16b (device busy
+   share, the attention kernels' and the expert products' shares) and the
+   decode step against its byte bound.
 
 The line before the last is the ``kernels`` JSON object; the last is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
@@ -172,6 +202,20 @@ ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # rtol = atol, tests/test_kerne
 # plain versions at rtol = atol = 2e-2 (bf16) in phase 2 and in
 # tests/test_torch_cuda.py.
 SERVE_TOL = 0.5
+# Phase 3h holds the MoE models to SERVE_TOL too.  In bf16 the router's
+# logits are bf16 values, and near the top-k boundary of 64 experts two of
+# them lie within a bf16 ulp about a fifth of the time, so the rounding
+# differences between the two paths pick other experts for many (token,
+# layer) pairs (on an H100 deepseek-moe-16b read 26 % of pairs when the
+# plain path routes by itself, 9.6 % of its own choices when it is given the
+# kernel path's, and logits within 0.31 on every row then; PERF.md).  So the
+# plain path is also run with the kernel path's expert choices (routing
+# teacher-forced like the tokens), where every row is held.
+# Phase 3h (b)'s f32 comparison (deepseek-moe-16b at 4 layers): the paths
+# differ only in the attention's summation order, so every expert choice is
+# the same, and the logits agree to f32 rounding carried through 4 layers
+# (1.3e-5 on an H100).
+F32_SERVE_TOL = 1e-3
 ALGOS = ("rag", "rerank_rag", "prag", "sonar", "sonar_lb", "sonar_ft",
          "sonar_geo", "sonar_session")
 MEGA_ALGOS = ALGOS + ("sonar_adapt",)
@@ -244,7 +288,55 @@ def record_routes(engine) -> list:
     return calls
 
 
-def serve_requests(cfg, plain_cfg, params, dev, n_slots, cap, prompts, max_new, tol):
+class ExpertLog:
+    """While active, every MoE layer call (`repro_torch.models.mlp._route`)
+    goes through ``route``: the calls' expert choices (``sel`` [B, S, K])
+    are kept in call order (``calls``), and `take` hands over those made
+    since the last take as [n_calls, B, S, K] with each token's experts
+    sorted (a set), on the host.
+
+    With ``forced`` (the calls of another run of the same schedule) the
+    layers take that run's choices instead of their own, call by call, with
+    their own router probabilities at those experts as weights (teacher
+    forcing of the routing, as the tokens are teacher-forced); their own
+    choices are still what ``calls`` keeps."""
+
+    def __init__(self, forced=None):
+        self.forced = forced
+
+    def __enter__(self):
+        from repro_torch.models import mlp
+
+        import torch
+
+        self._mlp, self._route, self.calls, self._taken = mlp, mlp._route, [], 0
+
+        def route(p, cfg, x):
+            probs, gate_w, sel = self._route(p, cfg, x)
+            self.calls.append(sel)
+            if self.forced is not None:
+                sel = self.forced[len(self.calls) - 1]
+                if sel.shape != self.calls[-1].shape:
+                    raise RuntimeError("ExpertLog: the forced run took another schedule")
+                gate_w = torch.gather(probs, -1, sel)
+                gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
+            return probs, gate_w, sel
+
+        mlp._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._mlp._route = self._route
+
+    def take(self):
+        import torch
+
+        calls, self._taken = self.calls[self._taken:], len(self.calls)
+        return torch.sort(torch.stack(calls), dim=-1).values.cpu() if calls else None
+
+
+def serve_requests(cfg, plain_cfg, params, dev, n_slots, cap, prompts, max_new, tol,
+                   experts=(), failures=None):
     """The serving path: ``prompts`` through a `ServeEngine` of ``cfg``
     (the kernel path) to `drain`, with the kernels' launch counters set to 0
     just before and read just after; then the same requests, teacher-forced
@@ -254,7 +346,20 @@ def serve_requests(cfg, plain_cfg, params, dev, n_slots, cap, prompts, max_new, 
     ``tol``, every first token must be equal, and wherever the plain path's
     argmax differs from the kernel path's token, the plain logit of that
     token must be within ``tol`` of the plain maximum (so the top-2 margin
-    is too).  Returns a dict of what was seen; fails on any breach."""
+    is too).
+
+    ``experts`` (a MoE model) names the plain runs to make, each logging
+    both paths' expert choices (`ExpertLog`): each row of logits is paired
+    with the choices made for its tokens (a prefill row: every prompt token
+    at every MoE layer; a decode row: the new token at every MoE layer), and
+    the (token, layer) pairs whose expert sets differ are counted.  In the
+    ``"own"`` run the plain path routes by itself: a near-tie of two router
+    probabilities can pick another expert when the paths' activations differ
+    by rounding, so the checks hold on the rows where no choice differs.
+    In the ``"forced"`` run the plain path takes the kernel path's choices
+    (its own are still counted), and the checks hold on every row.
+    ``failures`` (a list) collects the breaches instead of failing at once.
+    Returns a dict of what was seen, ``by_run`` holding each plain run's."""
     import torch
 
     from repro_torch.kernels import ops
@@ -262,20 +367,32 @@ def serve_requests(cfg, plain_cfg, params, dev, n_slots, cap, prompts, max_new, 
     from repro_torch.obs import Observability
     from repro_torch.serving.engine import Request, ServeEngine
 
+    def breach(msg):
+        fail(msg) if failures is None else failures.append(msg)
+
     kernel_rows = {}                     # (rid, position) -> kernel logits row
+    kernel_sets = {}                     # (rid, position) -> [layers, tokens, K] expert sets
+    klog = ExpertLog()
+
+    def row_sets(log_, reqs):
+        """Each request row's expert sets of the last forward, by row."""
+        sets = log_.take() if experts else None
+        return {} if sets is None else \
+            {i: sets[:, i] for i, r in enumerate(reqs) if r is not None}
 
     class Recording(ServeEngine):
         def _next_tokens(self, logits, reqs):
+            sets = row_sets(klog, reqs)
             for i, r in enumerate(reqs):
                 if r is not None:
                     kernel_rows[r.rid, len(r.generated)] = logits[i].clone()
+                    if experts:
+                        kernel_sets[r.rid, len(r.generated)] = sets[i]
             return super()._next_tokens(logits, reqs)
-
-    stats = {"prefill_max_abs": 0.0, "decode_max_abs": 0.0, "rows": 0, "argmax_diffs": [],
-             "first_token_diffs": 0}
 
     class TeacherForced(ServeEngine):
         def _next_tokens(self, logits, reqs):
+            sets = row_sets(plog, reqs)
             out = []
             for i, r in enumerate(reqs):
                 if r is None:
@@ -286,14 +403,25 @@ def serve_requests(cfg, plain_cfg, params, dev, n_slots, cap, prompts, max_new, 
                 tok = kreqs[r.rid].generated[pos]
                 row = logits[i]
                 d = float((row - want).abs().max())
-                key = "prefill_max_abs" if pos == 0 else "decode_max_abs"
-                stats[key] = max(stats[key], d)
-                stats["rows"] += 1
+                stats["all_rows_max_abs"] = max(stats["all_rows_max_abs"], d)
+                n_diff = 0
+                if experts:
+                    differ = (sets[i] != kernel_sets[r.rid, pos]).any(-1)   # [layers, tokens]
+                    n_diff = int(differ.sum())
+                    stats["expert_pairs"] += differ.numel()
+                    stats["expert_pair_diffs"] += n_diff
+                    stats["rows_expert_diff"] += int(n_diff > 0)
+                held = run != "own" or n_diff == 0
                 top = int(torch.argmax(row))
-                if top != tok:
-                    gap = float(row[top] - row[tok])
-                    stats["argmax_diffs"].append((r.rid, pos, gap))
-                    stats["first_token_diffs"] += int(pos == 0)
+                if top != tok and pos == 0:
+                    stats["first_token_diffs"].append(
+                        (r.rid, round(float(row[top] - row[tok]), 4), n_diff, round(d, 4), held))
+                if held:
+                    key = "prefill_max_abs" if pos == 0 else "decode_max_abs"
+                    stats[key] = max(stats[key], d)
+                    stats["rows"] += 1
+                    if top != tok:
+                        stats["argmax_diffs"].append((r.rid, pos, float(row[top] - row[tok])))
                 out.append(tok)
             return out
 
@@ -307,38 +435,54 @@ def serve_requests(cfg, plain_cfg, params, dev, n_slots, cap, prompts, max_new, 
         keng.submit(r)
     if dev.type == "cuda":
         torch.cuda.synchronize()
-    ops.reset_launches()                       # the serving path's count starts here
-    t0 = time.perf_counter()
-    steps = keng.drain()
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = ops.launch_counts()             # ... and is read here
+    with klog:
+        ops.reset_launches()                   # the serving path's count starts here
+        t0 = time.perf_counter()
+        steps = keng.drain()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()         # ... and is read here
+    del keng
     reg = obs.registry
     if not all(r.done and len(r.generated) == max_new for r in kreqs):
         fail(f"serving: {sum(not r.done for r in kreqs)} requests did not finish")
-    before = ops.launch_counts()
-    peng = TeacherForced(get_model(plain_cfg), params, n_slots=n_slots, cap=cap, device=dev)
-    preqs = requests()
-    for r in preqs:
-        peng.submit(r)
-    psteps = peng.drain()
-    if ops.launch_counts() != before:
-        fail("serving: the plain path launched an attention kernel")
-    if psteps != steps or [r.generated for r in preqs] != [r.generated for r in kreqs]:
-        fail("serving: the teacher-forced plain engine took another schedule")
-    if stats["first_token_diffs"]:
-        fail(f"serving: {stats['first_token_diffs']} first tokens differ between the kernel "
-             "and plain paths")
-    worst = max(stats["prefill_max_abs"], stats["decode_max_abs"])
-    if not worst <= tol:
-        fail(f"serving: logits differ by {worst} between the kernel and plain paths "
-             f"(tolerance {tol})")
-    bad = [d for d in stats["argmax_diffs"] if d[2] > tol]
-    if bad:
-        fail(f"serving: argmax differs beyond the tolerance at {bad[:5]}")
-    return dict(stats, steps=steps, wall_s=wall, launches=launches,
-                admitted=int(reg.value("engine_admitted_total")),
+    by_run = {}
+    for run in experts or (None,):
+        stats = {"prefill_max_abs": 0.0, "decode_max_abs": 0.0, "rows": 0, "argmax_diffs": [],
+                 "first_token_diffs": [], "expert_pairs": 0, "expert_pair_diffs": 0,
+                 "rows_expert_diff": 0, "all_rows_max_abs": 0.0}
+        before = ops.launch_counts()
+        peng = TeacherForced(get_model(plain_cfg), params, n_slots=n_slots, cap=cap, device=dev)
+        preqs = requests()
+        for r in preqs:
+            peng.submit(r)
+        plog = ExpertLog(forced=klog.calls if run == "forced" else None)
+        t0 = time.perf_counter()
+        with plog:
+            psteps = peng.drain()
+        stats["wall_s"] = time.perf_counter() - t0
+        del peng, plog
+        what = f"serving ({run} routing)" if run else "serving"
+        if ops.launch_counts() != before:
+            fail(f"{what}: the plain path launched an attention kernel")
+        if psteps != steps or [r.generated for r in preqs] != [r.generated for r in kreqs]:
+            fail(f"{what}: the teacher-forced plain engine took another schedule")
+        first = [f for f in stats["first_token_diffs"] if f[4]]
+        if first:
+            breach(f"{what}: {len(first)} first tokens differ between the kernel and plain "
+                   f"paths (rid, plain-logit gap, differing expert pairs, max abs, held): "
+                   f"{first}")
+        worst = max(stats["prefill_max_abs"], stats["decode_max_abs"])
+        if not worst <= tol:
+            breach(f"{what}: logits differ by {worst} between the kernel and plain paths "
+                   f"(tolerance {tol})")
+        bad = [d for d in stats["argmax_diffs"] if d[2] > tol]
+        if bad:
+            breach(f"{what}: argmax differs beyond the tolerance at {bad[:5]}")
+        by_run[run] = stats
+    return dict(by_run[(experts or (None,))[0]], by_run=by_run, steps=steps, wall_s=wall,
+                launches=launches, admitted=int(reg.value("engine_admitted_total")),
                 tokens=int(reg.value("engine_tokens_total")), requests=kreqs)
 
 
@@ -900,38 +1044,48 @@ def main(rehearse: bool) -> None:
         def attn_rand(shape, dt):
             return torch.randn(shape, generator=ga, device=dev).to(dt)
 
+        # phase 3h's head layouts: deepseek-moe-16b's MHA (16 / 16 heads, G = 1:
+        # S_att, the ragged S, 8 slots of cap S_att) and llama4-scout's G = 5
+        # (40 / 8 heads: S_att, the ragged S, 4 slots of cap S_att / 2)
         att_err = {}
+        half = S_att // 2
+        flash_cases = [(S, 16, 8) for S in (S_att, half - 24, 16)] \
+            + [(S, hq, hkv) for hq, hkv in ((16, 16), (40, 8)) for S in (S_att, half - 24)]
+        dec_lens = [1, S_att, 63, 64, 65, half - 24, S_att - 1, 200]
+        decode_cases = [(S_att, dec_lens, 16, 8), (256, [17, 19, 21, 23], 16, 8),
+                        (S_att, dec_lens, 16, 16), (half, [1, half, 513, half - 24], 40, 8)]
         for dt in (torch.bfloat16, torch.float32):
             tol = ATTN_TOL[str(dt).split(".")[1]]
-            for S in (S_att, S_att // 2 - 24, 16):
-                q, k, v = attn_rand((1, S, 16, 128), dt), attn_rand((1, S, 8, 128), dt), attn_rand((1, S, 8, 128), dt)
+            for S, hq, hkv in flash_cases:
+                q = attn_rand((1, S, hq, 128), dt)
+                k, v = attn_rand((1, S, hkv, 128), dt), attn_rand((1, S, hkv, 128), dt)
                 got = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
                 want = kref.mha_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                     sm_scale=1 / math.sqrt(128), causal=True)
                 sync()
-                att_err["flash_attention", dt, S] = attn_close(got, want, tol, f"flash {dt} S {S}")
-            for cap_, lens in ((S_att, [1, S_att, 63, 64, 65, S_att // 2 - 24, S_att - 1, 200]),
-                               (256, [17, 19, 21, 23])):
+                att_err["flash_attention", dt, hq, hkv, S] = attn_close(
+                    got, want, tol, f"flash {dt} {hq}/{hkv} heads S {S}")
+            for cap_, lens, hq, hkv in decode_cases:
                 nb = len(lens)
-                qd = attn_rand((nb, 16, 128), dt)
-                kc, vc = attn_rand((nb, cap_, 8, 128), dt), attn_rand((nb, cap_, 8, 128), dt)
+                qd = attn_rand((nb, hq, 128), dt)
+                kc, vc = attn_rand((nb, cap_, hkv, 128), dt), attn_rand((nb, cap_, hkv, 128), dt)
                 lens_d = torch.tensor(lens, dtype=torch.int32, device=dev)
                 got = ops.decode_attention(qd, kc.transpose(1, 2), vc.transpose(1, 2), lens_d)
-                want = kref.decode_ref(qd.reshape(nb, 8, 2, 128), kc.transpose(1, 2),
+                want = kref.decode_ref(qd.reshape(nb, hkv, hq // hkv, 128), kc.transpose(1, 2),
                                        vc.transpose(1, 2), lens_d.reshape(nb, 1),
-                                       sm_scale=1 / math.sqrt(128)).reshape(nb, 16, 128)
+                                       sm_scale=1 / math.sqrt(128)).reshape(nb, hq, 128)
                 sync()
-                att_err["decode_attention", dt, cap_, nb] = attn_close(
-                    got, want, tol, f"decode {dt} {nb} slots cap {cap_}")
+                att_err["decode_attention", dt, hq, hkv, cap_, nb] = attn_close(
+                    got, want, tol, f"decode {dt} {hq}/{hkv} heads {nb} slots cap {cap_}")
         for name in ("flash_attention", "decode_attention"):
             # the JSON's error is the serving path's dtype's (bf16)
             max_err[name] = max(e for (n, dt, *_), e in att_err.items()
                                 if n == name and dt == torch.bfloat16)
         log("phase 2: attention kernels vs plain versions, max abs err (tolerance rtol = atol = "
             f"{ATTN_TOL}): " + "; ".join(
-                f"{n} {str(dt).split('.')[1]} "
-                + (f"S {shape[0]}" if n == "flash_attention"
-                   else f"{shape[1]} slots cap {shape[0]}") + f": {e:.3g}"
+                f"{n} {str(dt).split('.')[1]} {shape[0]}/{shape[1]} heads "
+                + (f"S {shape[2]}" if n == "flash_attention"
+                   else f"{shape[3]} slots cap {shape[2]}") + f": {e:.3g}"
                 for (n, dt, *shape), e in att_err.items()))
         d_single = make_engine("sonar_ft", servers, mcfg, device=dev, index=index).route_texts(
             batches[0], **ft_kw)
@@ -1817,6 +1971,176 @@ def main(rehearse: bool) -> None:
     del gw_d
     log(f"phase 3g: {time.perf_counter() - t_3g:.1f} s in all")
 
+    # ----------------------------------------------------------------- 3h
+    # the MoE serving path (the reduced configs in the rehearsal): (a)
+    # deepseek-moe-16b at full width and depth, bf16; (d) one of its MoE
+    # layers on the card against its CPU run; (b) deepseek-moe-16b at 4
+    # layers in f32; (c) llama4-scout-17b-a16e at full width over 4 of its
+    # 48 layers.  Each model is freed before the next is drawn.
+    from repro_torch.models import mlp as moe_mlp
+    from repro_torch.nn import core as lm_nn
+
+    t_3h = time.perf_counter()
+
+    def free_card():
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def moe_model(arch, tag, n_layers=None, dtype="bfloat16"):
+        """The config at full width (reduced in the rehearsal), cut to
+        ``n_layers``, and its weights drawn on the card from seed 0."""
+        full = lm_configs.get_reduced(arch) if rehearse else lm_configs.get_config(arch)
+        cut = {} if n_layers is None else dict(n_layers=min(n_layers, full.n_layers))
+        cfg_ = dataclasses.replace(full, dtype=dtype, attn_impl="pallas", **cut)
+        free_card()
+        t0 = time.perf_counter()
+        params_ = get_model(cfg_).init_params(seed=0, device=dev)
+        sync()
+        n_ = sum(t.numel() for t in _leaves(params_))
+        # the tensors span the padded vocabulary; param_counts counts vocab_size
+        want = cfg_.param_counts()["total"] + (1 + (not cfg_.tie_embeddings)) * \
+            (cfg_.padded_vocab - cfg_.vocab_size) * cfg_.d_model
+        if n_ != want:
+            fail(f"phase {tag}: {n_:,} parameters drawn, param_counts() says {want:,}")
+        mem = (f", peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
+               if dev.type == "cuda" else "")
+        log(f"phase {tag}: {cfg_.name}: {cfg_.n_layers} of {full.n_layers} layers "
+            f"({cfg_.first_k_dense} dense prelude, d_ff {cfg_.ffn_hidden(0)}), d_model "
+            f"{cfg_.d_model}, {cfg_.n_heads}/{cfg_.n_kv_heads} heads of "
+            f"{cfg_.resolved_head_dim}, {cfg_.n_experts} routed experts top-"
+            f"{cfg_.experts_per_token} + {cfg_.n_shared_experts} shared of d_ff "
+            f"{cfg_.moe_d_ff}, vocab {cfg_.padded_vocab}, {dtype}: {n_:,} parameters "
+            f"({n_ * cfg_.torch_dtype.itemsize / 1e9:.2f} GB) drawn on {dev} in "
+            f"{time.perf_counter() - t0:.2f} s{mem}")
+        return cfg_, params_
+
+    failures_3h = []
+
+    def moe_serve(tag, cfg_, params_, seed, n_req, lens, n_slots, cap, max_new, tol, runs):
+        """``n_req`` seeded prompts of ``lens`` tokens through
+        `serve_requests` with the expert log and the plain ``runs``; the
+        launch gates.  Breaches are collected in ``failures_3h``."""
+        srng_ = np.random.default_rng(seed)
+        plens = srng_.integers(lens[0], lens[1] + 1, n_req)
+        prompts_ = [srng_.integers(0, cfg_.vocab_size, int(n)).astype(np.int32) for n in plens]
+        sv_ = serve_requests(cfg_, dataclasses.replace(cfg_, attn_impl="chunked"), params_, dev,
+                             n_slots=n_slots, cap=cap, prompts=prompts_, max_new=max_new,
+                             tol=tol, experts=runs, failures=failures_3h)
+        sl = sv_["launches"]
+        want_ = {"flash_attention": cfg_.n_layers * sv_["admitted"],
+                 "decode_attention": cfg_.n_layers * sv_["steps"]}
+        if not rehearse:
+            for name, n in want_.items():
+                if sl[name] != n:
+                    fail(f"phase 3h ({tag}): {name}: {sl[name]} launches, expected {n} "
+                         f"({cfg_.n_layers} layers x {n // cfg_.n_layers})")
+            others = {k: v for k, v in sl.items() if k not in want_ and v}
+            if others:
+                fail(f"phase 3h ({tag}): the serving path launched routing kernels: {others}")
+        mem = (f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
+               if dev.type == "cuda" else "")
+        log(f"phase 3h ({tag}): served {n_req} requests (prompts {sorted(plens.tolist())} "
+            f"tokens, {max_new} new each) through {n_slots} slots of cap {cap} in "
+            f"{sv_['steps']} decode steps, {sv_['wall_s']:.3f} s wall (expert choices logged), "
+            f"{sv_['tokens']} tokens ({sv_['tokens'] / sv_['wall_s']:.1f} tokens/s, host "
+            f"clock); launches {sl}{mem} [{smi_tag}]")
+        for run, st in sv_["by_run"].items():
+            gaps = [g for _, _, g in st["argmax_diffs"]]
+            where = "on the rows where none differs" if run == "own" else "on every row"
+            log(f"phase 3h ({tag}): teacher-forced plain path (attn_impl='chunked', {run} "
+                f"routing, {st['wall_s']:.3f} s): {st['expert_pair_diffs']} of "
+                f"{st['expert_pairs']} (token, MoE layer) pairs choose other experts, in "
+                f"{st['rows_expert_diff']} of {len(prompts_) * max_new} rows of logits; "
+                f"{where} ({st['rows']}) max abs difference prefill "
+                f"{st['prefill_max_abs']:.4g}, decode {st['decode_max_abs']:.4g} (tolerance "
+                f"{tol}); over every row {st['all_rows_max_abs']:.4g}; first tokens that "
+                f"differ (rid, plain-logit gap, differing pairs, max abs, held): "
+                f"{st['first_token_diffs']}; {len(gaps)} argmax differences held, largest "
+                f"plain-logit gap {max(gaps, default=0.0):.4g}")
+        return sv_
+
+    # (a) deepseek-moe-16b at full width and depth
+    ds_cfg, ds_params = moe_model("deepseek-moe-16b", "3h (a)")
+    sv_a = moe_serve("a", ds_cfg, ds_params, 7, 16, (64, 1536), 8, 2048, 32, SERVE_TOL,
+                     ("own", "forced"))
+    h_launches = sv_a["launches"]
+
+    # (d) one MoE layer (group layer 0, full width) on the card against its
+    # CPU run on the same inputs: 2 rows of 256 tokens; run twice on the
+    # card, bit for bit
+    lay = {k: ({kk: vv[0] for kk, vv in v.items()} if isinstance(v, dict) else v[0])
+           for k, v in ds_params["groups"]["l0"]["ffn"]["moe"].items()}
+    gx = torch.Generator(device=dev).manual_seed(21)
+    xm = torch.randn((2, 256, ds_cfg.d_model), generator=gx, device=dev).to(torch.bfloat16)
+    K_, E_ = ds_cfg.experts_per_token, ds_cfg.n_experts
+    C_ = moe_mlp._capacity(256, K_, E_, ds_cfg.capacity_factor)
+    y1, aux1 = moe_mlp.moe_ffn_apply(lay, ds_cfg, xm)
+    y2, aux2 = moe_mlp.moe_ffn_apply(lay, ds_cfg, xm)
+    if not (torch.equal(y1, y2) and torch.equal(aux1, aux2)):
+        fail("phase 3h (d): two runs of the MoE layer on the card differ")
+    card_d = [t.cpu() for t in moe_mlp._moe_dispatch(lay, ds_cfg, xm, C_)]
+    logits_card = lm_nn.dense(xm, lay["router"]).to(torch.float32).cpu()
+    lay_h = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict) else v.cpu())
+             for k, v in lay.items()}
+    xm_h = xm.cpu()
+    logits_host = lm_nn.dense(xm_h, lay_h["router"]).to(torch.float32)
+    n_logit_diff = int((logits_card != logits_host).sum())
+    sets_c = torch.sort(moe_mlp._gates(logits_card, K_)[2], dim=-1).values
+    sets_h = torch.sort(moe_mlp._gates(logits_host, K_)[2], dim=-1).values
+    n_set_diff = int((sets_c != sets_h).any(-1).sum())
+    own = moe_mlp._moe_dispatch(lay_h, ds_cfg, xm_h, C_)
+
+    def dispatch_equal(a, b):
+        return torch.equal(a[1], b[1]) and torch.equal(a[2], b[2]) and \
+            torch.equal(a[3] != 0, b[3] != 0)
+
+    # slot, token_of and the kept mask depend on the logits only through
+    # each token's expert set
+    if n_set_diff == 0 and not dispatch_equal(card_d, own):
+        failures_3h.append("phase 3h (d): equal expert sets, yet the dispatch differs from "
+                           "the CPU's")
+    real_route = moe_mlp._route
+    moe_mlp._route = lambda p_, cfg_, x_: moe_mlp._gates(logits_card, cfg_.experts_per_token)
+    try:
+        forced = moe_mlp._moe_dispatch(lay_h, ds_cfg, xm_h, C_)
+        y_h, aux_h = moe_mlp.moe_ffn_apply(lay_h, ds_cfg, xm_h)
+    finally:
+        moe_mlp._route = real_route
+    if not dispatch_equal(card_d, forced):
+        failures_3h.append("phase 3h (d): slot, token_of or the kept mask differ between the "
+                           "card and the CPU on the same router logits")
+    err_d = attn_close(y1, y_h, ATTN_TOL["bfloat16"], "phase 3h (d): the MoE layer's y")
+    n_kept = int((card_d[3] != 0).sum())
+    log(f"phase 3h (d): one MoE layer [2, 256, {ds_cfg.d_model}] (C {C_}): two card runs bit "
+        f"for bit; router logits differ from the CPU's at {n_logit_diff} of "
+        f"{logits_card.numel()} entries ({n_set_diff} tokens' expert sets differ); given the "
+        f"card's logits, slot, token_of and the kept mask ({n_kept} of {card_d[3].numel()} "
+        f"entries kept) equal the CPU's"
+        + (", and so they do on the CPU's own logits" if n_set_diff == 0 else "")
+        + f"; y within {ATTN_TOL['bfloat16']} (max abs {err_d:.3g}), aux "
+        f"{float(aux1):.6f} against {float(aux_h):.6f}")
+    del ds_params, lay, lay_h, xm, y1, y2, card_d, own, forced, y_h
+
+    # (b) deepseek-moe-16b at 4 layers (the prelude + 3 MoE layers) in f32
+    f32_cfg, f32_params = moe_model("deepseek-moe-16b", "3h (b)", n_layers=4, dtype="float32")
+    sv_b = moe_serve("b", f32_cfg, f32_params, 8, 6, (64, 1024), 4, 2048, 8, F32_SERVE_TOL,
+                     ("own",))
+    if sv_b["expert_pair_diffs"]:
+        failures_3h.append(f"phase 3h (b): {sv_b['expert_pair_diffs']} (token, layer) pairs "
+                           "choose other experts on the two f32 paths")
+    del f32_params
+
+    # (c) llama4-scout-17b-a16e at full width over 4 of its 48 layers
+    sc_cfg, sc_params = moe_model("llama4-scout-17b-a16e", "3h (c)", n_layers=4)
+    moe_serve("c", sc_cfg, sc_params, 9, 8, (64, 960), 4, 1024, 32, SERVE_TOL,
+              ("own", "forced"))
+    del sc_params
+    free_card()
+    log(f"phase 3h: {time.perf_counter() - t_3h:.1f} s in all")
+    if failures_3h:
+        fail("phase 3h: " + " | ".join(failures_3h))
+
     # ------------------------------------------------------------------ 4
     def timed(fn, n=reps):
         """Median ms of ``n`` calls after two warm-up calls (CUDA events on the card)."""
@@ -1973,6 +2297,44 @@ def main(rehearse: bool) -> None:
             bound=bound(2 * (2 * kd.numel() + 2 * qd.numel()), 4 * 8 * 16 * S_att * 128,
                         BF16_OPS_PER_S),
             shape=f"8 slots x 16 heads against [8, {S_att}, 8, 128] caches, bf16"))
+        # the attention kernels at phase 3h's head layouts, bf16: G = 1
+        # (deepseek-moe-16b: 16 / 16 heads; flash at S_att, decode of 8 slots
+        # of cap S_att) and G = 5 (llama4-scout: 40 / 8 heads; flash at S_att,
+        # decode of 4 slots of cap S_att / 2), each as a CUDA-event window
+        # and, on the card, as device time alone, beside the plain version,
+        # SDPA and the bound
+        for hq, hkv, nb, cap_ in ((16, 16, 8, S_att), (40, 8, 4, S_att // 2)):
+            qg, kg, vg = attn_rand((1, hq, S_att, 128), bf), attn_rand((1, hkv, S_att, 128), bf), \
+                attn_rand((1, hkv, S_att, 128), bf)
+            qn, kn, vn = attn_rand((nb, hq, 128), bf), attn_rand((nb, cap_, hkv, 128), bf), \
+                attn_rand((nb, cap_, hkv, 128), bf)
+            kn_t, vn_t = kn.transpose(1, 2), vn.transpose(1, 2)
+            lens_n = torch.full((nb,), cap_, dtype=torch.int32, device=dev)
+            cases = (
+                (f"flash_attention [1, {hq}, {S_att}, 128] x {hkv} kv heads, causal",
+                 lambda: ops.flash_attention(qg, kg, vg),
+                 lambda: kref.mha_ref(qg, kg, vg, sm_scale=1 / math.sqrt(128)),
+                 lambda: sdpa(qg, kg, vg, is_causal=True, enable_gqa=True),
+                 bound(2 * (2 * qg.numel() + kg.numel() + vg.numel()),
+                       4 * hq * S_att * S_att * 128 / 2, BF16_OPS_PER_S)),
+                (f"decode_attention {nb} slots x {hq} heads against [{nb}, {cap_}, {hkv}, 128] "
+                 "caches", lambda: ops.decode_attention(qn, kn_t, vn_t, lens_n),
+                 lambda: kref.decode_ref(qn.reshape(nb, hkv, hq // hkv, 128), kn_t, vn_t,
+                                         lens_n.reshape(nb, 1), sm_scale=1 / math.sqrt(128)),
+                 lambda: sdpa(qn[:, :, None], kn_t, vn_t, enable_gqa=True),
+                 bound(2 * (2 * kn.numel() + 2 * qn.numel()), 4 * nb * hq * cap_ * 128,
+                       BF16_OPS_PER_S)),
+            )
+            for what, kern, plain, lib, bnd in cases:
+                alone = lib_alone = "not measured"
+                if dev.type == "cuda":
+                    _, per = device_us(kern, 20)
+                    _, per_lib = device_us(lib, 20)
+                    alone = f"{sum(per.values()) / 1e3:.4f} ms" if per else alone
+                    lib_alone = f"{sum(per_lib.values()) / 1e3:.4f} ms" if per_lib else lib_alone
+                log(f"phase 4: {what}, bf16 (G = {hq // hkv}): kernel {timed(kern):.4f} ms window, "
+                    f"{alone} alone; plain {timed(plain):.4f} ms; SDPA {timed(lib):.4f} ms "
+                    f"window, {lib_alone} alone; bound {bnd[0]:.5f} ms by {bnd[1]} [{smi_tag}]")
         # the kernels' own device time per call (the split and merge
         # kernels of decode together), apart from the wrapper's host work
         # that the CUDA-event window includes when the host is the slower
@@ -2232,6 +2594,78 @@ def main(rehearse: bool) -> None:
             f"({ms(pre_busy)} device); decode step of 8 slots {dec_wall:.3f} ms wall "
             f"({ms(dec_busy)} device, {8e3 / dec_wall:.1f} tokens/s at 8 slots); peak device "
             f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+    # phase 3h (a)'s model at its two calls: one prefill of 1536 tokens, one
+    # decode step of 8 slots at cache_len 1536 (the weights drawn again from
+    # the same seed); the device time of the attention kernels and of the
+    # expert products (aten::bmm: on the kernel path the MoE layers' only
+    # batched products) within each, and the decode step against its byte
+    # bound (every weight read once but the embedding's 8 rows, since at C =
+    # 8 every expert runs its slots; the caches' 1537 rows of 8 slots; the
+    # logits written)
+    del lm_params, cache8
+    ds_cfg, ds_params = moe_model("deepseek-moe-16b", "4")
+    ds = get_model(ds_cfg)
+    t1536 = torch.as_tensor(np.random.default_rng(8).integers(0, ds_cfg.vocab_size, (1, 1536)),
+                            device=dev)
+    cache8 = ds.init_cache(8, 2048, device=dev)
+    if dev.type == "cuda":
+        def moe_breakdown(what, fn, calls=2):
+            """Wall, device busy, attention-kernel and expert-product ms per
+            call of ``fn`` from a profile (taken again, up to three times,
+            when the tracer returns no device activity)."""
+            fn()
+            sync()
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            for _ in range(3):
+                with torch.profiler.profile(activities=acts) as prof:
+                    t = time.perf_counter()
+                    for _ in range(calls):
+                        fn()
+                    sync()
+                    wall = (time.perf_counter() - t) * 1e3 / calls
+                busy = att = bmm = 0.0
+                for ev in prof.key_averages():
+                    if ev.device_type == torch.autograd.DeviceType.CUDA:
+                        d = getattr(ev, "self_device_time_total", 0) \
+                            or getattr(ev, "self_cuda_time_total", 0)
+                        busy += d
+                        if any(k in ev.key for k in ("flash_", "decode_split", "decode_merge")):
+                            att += d
+                    elif ev.key == "aten::bmm":
+                        bmm += getattr(ev, "device_time_total", 0) \
+                            or getattr(ev, "cuda_time_total", 0)
+                if busy:
+                    break
+            if not busy:
+                log(f"phase 4: profile of {what}: not measured (wall {wall:.3f} ms; no device "
+                    "activity traced)")
+                return wall, None
+            busy, att, bmm = (v / calls / 1e3 for v in (busy, att, bmm))
+            log(f"phase 4: profile of {what}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+                f"({100 * busy / wall:.1f} %); attention kernels {att:.3f} ms "
+                f"({100 * att / busy:.1f} % of busy), expert products (aten::bmm) {bmm:.3f} ms "
+                f"({100 * bmm / busy:.1f} % of busy) [{smi_tag}]")
+            return wall, busy
+
+        torch.cuda.reset_peak_memory_stats()
+        moe_breakdown(f"prefill of 1536 tokens ({ds_cfg.name}, bf16)",
+                      lambda: ds.prefill(ds_params, {"tokens": t1536}))
+        dwall, dbusy = moe_breakdown(
+            f"decode step of 8 slots at cache_len 1536 ({ds_cfg.name})",
+            lambda: ds.decode_step(ds_params, cache8, tok8, 1536))
+        isz = ds_cfg.torch_dtype.itemsize
+        w_bytes = sum(t.numel() for t in _leaves(ds_params)) * isz \
+            - (ds_cfg.padded_vocab - 8) * ds_cfg.d_model * isz
+        kv_bytes = ds_cfg.n_layers * 2 * 8 * 1537 * ds_cfg.n_kv_heads \
+            * ds_cfg.resolved_head_dim * isz
+        dbound = (w_bytes + kv_bytes + 8 * ds_cfg.padded_vocab * 4) / HBM_BYTES_PER_S * 1e3
+        log(f"phase 4: {ds_cfg.name} decode step of 8 slots: byte bound {dbound:.3f} ms "
+            f"({w_bytes / 1e9:.2f} GB of weights, {kv_bytes / 1e9:.2f} GB of cache at 3.35 TB/s) "
+            f"against {'not measured' if dbusy is None else f'{dbusy:.3f} ms'} device, "
+            f"{dwall:.3f} ms wall; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB [{smi_tag}]")
+    del ds_params, cache8
 
     kernels = [
         dict(name=r["name"], route="cuda", source=SOURCES[r["name"]],

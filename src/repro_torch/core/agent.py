@@ -26,7 +26,7 @@ import numpy as np
 from repro_torch.core import latency as L
 from repro_torch.core.batch_routing import BatchRoutingEngine
 from repro_torch.core.dataset import Query
-from repro_torch.core.platform import NetMCPPlatform
+from repro_torch.core.platform import NetMCPPlatform, ToolResult  # noqa: F401
 from repro_torch.core.routing import Decision, Router
 
 

@@ -56,7 +56,8 @@ from repro_torch.core.qos import (
     rtt_penalty,
     staleness_discount,
 )
-from repro_torch.core.routing import (
+from repro_torch.core.routing import (  # noqa: F401  (ALGORITHMS: the reference's re-export)
+    ALGORITHMS,
     BM25_STAGE_MS,
     LLM_CALL_MS,
     LLM_RERANK_MS,

@@ -26,6 +26,8 @@ from typing import Optional
 import torch
 
 from repro_torch.core.bm25 import bm25_scores, topk
+from repro_torch.core.bm25 import bm25_scores as bm25_ref  # noqa: F401
+from repro_torch.core.qos import QosParams, network_score as qos_ref  # noqa: F401
 
 NEG = -1e30   # finite -inf stand-in (kernel and oracle agree)
 

@@ -1,1 +1,2 @@
-"""The LLM scaffold's models, twin of `repro.models` (dense GQA decoders)."""
+"""The LLM scaffold's models, twin of `repro.models` (attention decoders
+with dense or MoE FFNs)."""

@@ -1,17 +1,21 @@
-"""Decoder LM, twin of `repro.models.lm`, for the dense GQA family.
+"""Decoder LM, twin of `repro.models.lm`, for attention decoders with
+dense or MoE FFNs.
 
 Parameters are the reference's tree: ``embed`` [padded_vocab, d],
-``final_norm``, ``head`` [d, padded_vocab] (unless tied) and ``groups``,
-one entry per position of ``cfg.block_pattern`` whose tensors carry a
-leading layer axis (the reference's stacked scan groups).  `lm_forward`
-walks that axis in a Python loop instead of a scan.
+``final_norm``, ``head`` [d, padded_vocab] (unless tied), one unstacked
+block ``prelude_{i}`` for each of the ``first_k_dense`` leading layers
+(DeepSeek-MoE's dense layer 0), and ``groups``, one entry per position of
+``cfg.block_pattern`` whose tensors carry a leading layer axis (the
+reference's stacked scan groups).  `lm_forward` runs the prelude blocks,
+then walks the groups' layer axis in a Python loop instead of a scan.
 
-The cache is ``{"groups": {"l0": (k, v)}}`` with k/v [n_layers, B, cap,
-Hkv, hd]; decode updates it in place and returns the same tree.
+The cache is ``{"prelude_{i}": (k, v), "groups": {"l0": (k, v)}}``: k/v
+[B, cap, Hkv, hd] for a prelude layer, [n_layers, B, cap, Hkv, hd] in the
+groups; decode updates it in place and returns the same tree.
 
-Ported: ``"attn"`` blocks with dense FFNs.  Mamba, mLSTM and sLSTM blocks,
-prelude (``first_k_dense``) layers, MoE FFNs, vision tokens and the
-encoder-decoder raise `NotImplementedError` (`ROADMAP.md` queue 1, item 11).
+Ported: ``"attn"`` blocks with dense or MoE FFNs, prelude layers included.
+Mamba, mLSTM and sLSTM blocks, vision tokens and the encoder-decoder raise
+`NotImplementedError` (`ROADMAP.md` queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -30,14 +34,10 @@ def check_supported(cfg: ModelConfig) -> None:
     why = None
     if cfg.is_encoder_decoder:
         why = "the encoder-decoder"
-    elif cfg.first_k_dense:
-        why = "prelude (first_k_dense) layers"
     elif cfg.n_vision_tokens:
         why = "vision tokens"
     elif any(kind != "attn" for kind in cfg.layer_kinds()):
         why = f"block kinds {sorted(set(cfg.layer_kinds()) - {'attn'})}"
-    elif any(cfg.layer_is_moe(i) for i in range(cfg.n_layers)):
-        why = "MoE FFNs"
     if why is not None:
         raise NotImplementedError(
             f"repro_torch: {cfg.name} needs {why}, which is not ported yet "
@@ -69,7 +69,8 @@ def _unstack(tree, n: int) -> list:
 
 def block_init(ctx: nn.InitCtx, cfg: ModelConfig, layer_idx: int, n_layers: int) -> dict:
     """``n_layers`` ``"attn"`` blocks like layer ``layer_idx``, stacked on a
-    leading axis (the reference's vmapped `stack_init`)."""
+    leading axis (the reference's vmapped `stack_init`); one prelude block
+    is ``_unstack(block_init(..., 1), 1)[0]``."""
     kind = cfg.layer_kinds()[layer_idx]
     if kind != "attn":
         raise NotImplementedError(f"repro_torch: {kind} blocks are not ported yet")
@@ -122,9 +123,12 @@ def lm_init(ctx: nn.InitCtx, cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         p["head"] = nn.fan_in_normal(ctx, (d, cfg.padded_vocab))
+    for i in range(cfg.first_k_dense):
+        p[f"prelude_{i}"] = _unstack(block_init(ctx, cfg, i, 1), 1)[0]
     nG = _n_groups(cfg)
     p["groups"] = {
-        f"l{j}": block_init(ctx, cfg, j, nG) for j in range(len(cfg.block_pattern))
+        f"l{j}": block_init(ctx, cfg, cfg.first_k_dense + j, nG)
+        for j in range(len(cfg.block_pattern))
     }
     return p
 
@@ -138,9 +142,10 @@ def lm_forward(
     cache_len=None,
 ):
     """Returns (logits, new_cache): the last position's logits in
-    ``prefill`` (with the prompt's [n_layers, B, S, Hkv, hd] cache), the new
-    token's in ``decode`` (the cache updated in place at ``cache_len``).
-    Training, the reference's third mode, is not ported yet."""
+    ``prefill`` (with the prompt's cache, [B, S, Hkv, hd] per prelude layer
+    and [n_layers, B, S, Hkv, hd] per group entry), the new token's in
+    ``decode`` (the cache updated in place at ``cache_len``).  Training, the
+    reference's third mode, is not ported yet."""
     if mode not in ("prefill", "decode"):
         raise ValueError(f"lm_forward: unknown mode {mode!r}")
     if set(batch) - {"tokens"}:
@@ -151,6 +156,12 @@ def lm_forward(
     x = embed[tokens]                                      # [B, S, d]
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     kinds = list(cfg.block_pattern)
+    prelude_kv = {}
+    for i in range(cfg.first_k_dense):
+        name = f"prelude_{i}"
+        x, c_new = block_apply(p[name], cfg, cfg.layer_kinds()[i], x, positions, mode,
+                               None if cache is None else cache[name], cache_len)
+        prelude_kv[name] = c_new
     nG = _n_groups(cfg)
     layers = _unstack(p["groups"], nG)
     layer_cache = None if cache is None else _unstack(cache["groups"], nG)
@@ -166,8 +177,9 @@ def lm_forward(
 
     x = nn.rms_norm(x, p["final_norm"], cfg.norm_eps)
     if mode == "prefill":
-        new_cache = {"groups": {name: (torch.stack(ks), torch.stack(vs))
-                                for name, (ks, vs) in prefill_kv.items()}}
+        new_cache = dict(prelude_kv)
+        new_cache["groups"] = {name: (torch.stack(ks), torch.stack(vs))
+                               for name, (ks, vs) in prefill_kv.items()}
         x = x[:, -1:]                                      # only last-position logits
     else:
         new_cache = cache
@@ -182,12 +194,35 @@ def lm_forward(
 # Cache init (tree matches lm_forward's cache layout)
 # ---------------------------------------------------------------------------
 
+def block_cache(cfg: ModelConfig, layer_idx: int, batch: int, cap: int, device) -> tuple:
+    """Zeroed (k, v) [batch, cap, Hkv, hd] of one ``"attn"`` layer."""
+    kind = cfg.layer_kinds()[layer_idx]
+    if kind != "attn":
+        raise NotImplementedError(f"repro_torch: {kind} blocks are not ported yet")
+    return tuple(t[0] for t in attn.init_cache(cfg, 1, batch, cap, device))
+
+
+def block_cache_axes(cfg: ModelConfig, layer_idx: int) -> tuple:
+    kind = cfg.layer_kinds()[layer_idx]
+    if kind != "attn":
+        raise NotImplementedError(f"repro_torch: {kind} blocks are not ported yet")
+    return (attn.CACHE_AXES, attn.CACHE_AXES)
+
+
 def lm_init_cache(cfg: ModelConfig, batch: int, cap: int, device) -> dict:
+    cache: dict = {f"prelude_{i}": block_cache(cfg, i, batch, cap, device)
+                   for i in range(cfg.first_k_dense)}
     nG = _n_groups(cfg)
-    return {"groups": {f"l{j}": attn.init_cache(cfg, nG, batch, cap, device)
-                       for j in range(len(cfg.block_pattern))}}
+    cache["groups"] = {f"l{j}": attn.init_cache(cfg, nG, batch, cap, device)
+                       for j in range(len(cfg.block_pattern))}
+    return cache
 
 
 def lm_cache_axes(cfg: ModelConfig) -> dict:
-    axes = ("layers",) + attn.CACHE_AXES
-    return {"groups": {f"l{j}": (axes, axes) for j in range(len(cfg.block_pattern))}}
+    axes: dict = {f"prelude_{i}": block_cache_axes(cfg, i) for i in range(cfg.first_k_dense)}
+    axes["groups"] = {
+        f"l{j}": tuple(("layers",) + names
+                       for names in block_cache_axes(cfg, cfg.first_k_dense + j))
+        for j in range(len(cfg.block_pattern))
+    }
+    return axes

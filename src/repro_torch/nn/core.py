@@ -34,8 +34,20 @@ class InitCtx:
 
 
 def normal(ctx: InitCtx, shape, stddev: float = 0.02) -> torch.Tensor:
-    v = torch.randn(tuple(shape), generator=ctx.gen, device=ctx.device, dtype=torch.float32)
-    return (v * stddev).to(ctx.dtype)
+    """f32 normal draws times ``stddev``, cast to the model dtype.  A
+    layer-stacked weight (three or more dims) is made in the model dtype and
+    drawn one slice of its leading axis at a time, so the f32 draws never
+    take more than one layer's room (stacked experts at full width would
+    otherwise need 4 bytes an element at once)."""
+    shape = tuple(shape)
+    if len(shape) < 3:
+        v = torch.randn(shape, generator=ctx.gen, device=ctx.device, dtype=torch.float32)
+        return (v * stddev).to(ctx.dtype)
+    out = torch.empty(shape, dtype=ctx.dtype, device=ctx.device)
+    for layer in out:
+        v = torch.randn(shape[1:], generator=ctx.gen, device=ctx.device, dtype=torch.float32)
+        layer.copy_((v * stddev).to(ctx.dtype))
+    return out
 
 
 def fan_in_normal(ctx: InitCtx, shape, fan_in: Optional[int] = None) -> torch.Tensor:

@@ -31,7 +31,7 @@ from repro_torch.core.batch_routing import BatchRoutingEngine
 from repro_torch.core.dataset import Server, Tool
 from repro_torch.core.mesh_routing import ShardedRoutingEngine
 from repro_torch.core.qos import load_penalty, rtt_penalty
-from repro_torch.core.routing import RoutingConfig
+from repro_torch.core.routing import ALGORITHMS, RoutingConfig, SonarRouter  # noqa: F401
 from repro_torch.obs import Observability, annotate
 from repro_torch.sessions.warmth import WarmthTracker
 

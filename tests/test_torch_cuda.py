@@ -505,7 +505,7 @@ def _randn(g, shape, dtype, dev):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("G,S", [(1, 1), (2, 130), (4, 2048), (8, 130)])
+@pytest.mark.parametrize("G,S", [(1, 1), (2, 130), (4, 2048), (8, 130), (1, 2048), (5, 1000)])
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(cuda, dtype, D, G, S, causal):
@@ -541,7 +541,7 @@ def test_flash_kernel_model_layout_and_offsets(cuda, dtype):
 
 
 @pytest.mark.parametrize("S", [130, 2048])
-@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("G", [1, 2, 4, 5, 8])
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_kernel_matches_plain(cuda, dtype, D, G, S):
@@ -866,3 +866,108 @@ def test_gateway_route_stats_fold_equals_host_tally(cuda, shards):
     assert out["n_routed"] == len(gw.stats) == sum(2 + i for i in range(8))
     np.testing.assert_allclose(out["mean_expertise"],
                                np.mean([r.expertise for r in gw.stats]), rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the MoE FFN on the card
+# ---------------------------------------------------------------------------
+
+def _moe_cfg(dtype, **over):
+    """A narrow DeepSeek-like MoE decoder: a dense prelude layer, then MoE
+    layers of 16 experts, top-4, 2 shared experts."""
+    return ModelConfig(**dict(dict(
+        name="tiny-moe", family="moe", n_layers=3, d_model=256, n_heads=4, n_kv_heads=4,
+        d_ff=128, vocab_size=1000, n_experts=16, experts_per_token=4, n_shared_experts=2,
+        moe_d_ff=128, first_k_dense=1, dense_d_ff=512, dtype=dtype), **over))
+
+
+def _moe_layer(cfg, dev):
+    """One MoE layer's weights drawn on the CPU from a seed, and their copy on ``dev``."""
+    from repro_torch.models import mlp
+    from repro_torch.nn import core as nn
+
+    p = mlp.moe_ffn_init(nn.InitCtx(gen=torch.Generator().manual_seed(4),
+                                    dtype=cfg.torch_dtype), cfg, 1)
+    p = {k: ({kk: vv[0] for kk, vv in v.items()} if isinstance(v, dict) else v[0])
+         for k, v in p.items()}
+    on = {k: ({kk: vv.to(dev) for kk, vv in v.items()} if isinstance(v, dict) else v.to(dev))
+          for k, v in p.items()}
+    return p, on
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_dispatch_on_the_card_equals_its_cpu_run(cuda, dtype, monkeypatch):
+    """The dispatch (stable sorts, per-row capacity, drops) on the card equals
+    its CPU run exactly, and the layer's output agrees within the dtype's
+    tolerance.  The router product is a library product whose rounding may
+    differ between the devices, so the CPU run is given the card's router
+    logits; 3 rows of 200 tokens at capacity factor 0.5 drop entries."""
+    from repro_torch.models import mlp
+    from repro_torch.nn import core as nn
+
+    cfg = _moe_cfg(dtype, capacity_factor=0.5)
+    p, pd = _moe_layer(cfg, cuda)
+    x = torch.randn((3, 200, cfg.d_model), generator=torch.Generator().manual_seed(5)) \
+        .to(cfg.torch_dtype)
+    xd = x.to(cuda)
+    C = mlp._capacity(200, cfg.experts_per_token, cfg.n_experts, cfg.capacity_factor)
+    card = mlp._moe_dispatch(pd, cfg, xd, C)
+    y_card, aux_card = mlp.moe_ffn_apply(pd, cfg, xd)
+    logits = nn.dense(xd, pd["router"]).to(torch.float32).cpu()
+    monkeypatch.setattr(mlp, "_route",
+                        lambda p_, cfg_, x_: mlp._gates(logits, cfg_.experts_per_token))
+    host = mlp._moe_dispatch(p, cfg, x, C)
+    y_host, aux_host = mlp.moe_ffn_apply(p, cfg, x)
+    buf, slot, token_of, w_keep, _ = (t.cpu() for t in card)
+    assert torch.equal(slot, host[1]) and torch.equal(token_of, host[2])
+    assert not bool((w_keep > 0).all())                          # entries were dropped
+    torch.testing.assert_close(w_keep.float(), host[3].float(), **ATTN_TOL[cfg.torch_dtype])
+    assert torch.equal(buf, host[0])                             # gathered rows of x
+    torch.testing.assert_close(y_card.cpu().float(), y_host.float(), **ATTN_TOL[cfg.torch_dtype])
+    torch.testing.assert_close(aux_card.cpu(), aux_host, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_ffn_on_the_card_is_deterministic(cuda, dtype):
+    """The combine sums each token's contributions in one fixed order through
+    gathers (no atomics): two runs on the card give the same bits, decode
+    rows (S = 1, 8 slots) and a prefill row alike."""
+    from repro_torch.models import mlp
+
+    cfg = _moe_cfg(dtype)
+    _, pd = _moe_layer(cfg, cuda)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    for shape in ((8, 1, cfg.d_model), (1, 700, cfg.d_model)):
+        x = torch.randn(shape, generator=g, device=cuda).to(cfg.torch_dtype)
+        a, b = mlp.moe_ffn_apply(pd, cfg, x), mlp.moe_ffn_apply(pd, cfg, x)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_moe_model_kernel_path_matches_plain_path(cuda):
+    """The narrow MoE decoder (dense prelude + 2 MoE layers) in float32 on the
+    card: prefill and decode under attn_impl="pallas" (one launch per layer
+    per call, the prelude's included) against the plain "naive" path on the
+    same weights."""
+    from repro_torch.serving.engine import pad_cache_to_capacity
+
+    cfg = _moe_cfg("float32", attn_impl="pallas")
+    plain = dataclasses.replace(cfg, attn_impl="naive")
+    params = get_model(cfg).init_params(seed=1, device=cuda)
+    toks = torch.randint(0, 1000, (2, 150), generator=torch.Generator(device=cuda).manual_seed(2),
+                         device=cuda)
+    tol = ATTN_TOL[torch.float32]
+    ops.reset_launches()
+    lk, ck = get_model(cfg).prefill(params, {"tokens": toks})
+    lp, cp = get_model(plain).prefill(params, {"tokens": toks})
+    assert ops.launch_counts()["flash_attention"] == 3
+    torch.testing.assert_close(lk, lp, rtol=tol["rtol"], atol=tol["atol"] * float(lp.abs().max()))
+    ck = pad_cache_to_capacity(ck, get_model(cfg).cache_axes(), 200)
+    cp = pad_cache_to_capacity(cp, get_model(cfg).cache_axes(), 200)
+    nt = toks[:, -1:]
+    for step in range(3):
+        lk, ck = get_model(cfg).decode_step(params, ck, nt, 150 + step)
+        lp, cp = get_model(plain).decode_step(params, cp, nt, 150 + step)
+        torch.testing.assert_close(lk, lp, rtol=tol["rtol"],
+                                   atol=tol["atol"] * float(lp.abs().max()))
+    assert ops.launch_counts()["decode_attention"] == 9
+    torch.testing.assert_close(ck["prelude_0"][0], cp["prelude_0"][0], **tol)

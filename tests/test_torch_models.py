@@ -271,11 +271,12 @@ def test_registry_grid_and_unported_families():
     assert on.audit_tap is not None and on.ensure_route_stats(3).n_servers == 3
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ("deepseek-moe-16b", "llama4-scout-17b-a16e"))
 def test_port_initialiser_shapes_dtypes_and_std(arch):
-    """The port's own random weights: the reference's tree, shapes and dtype,
-    drawn in its distributions (embedding std 0.02, fan-in normals, ones,
-    zero biases), reproducibly from the seed."""
+    """The port's own random weights: the reference's tree, shapes and dtype
+    (DeepSeek-MoE's dense prelude and the MoE leaves included), drawn in its
+    distributions (embedding std 0.02, fan-in normals, router std 0.02,
+    ones, zero biases), reproducibly from the seed."""
     jcfg, cfg = _pair(arch, "float32")
     ref_shapes = jax.tree.map(lambda a: a.shape,
                               jget_model(jcfg).init_params(jax.random.PRNGKey(0), abstract=True)[0])
@@ -286,18 +287,32 @@ def test_port_initialiser_shapes_dtypes_and_std(arch):
     again = get_model(cfg).init_params(seed=3, device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(jax.tree.leaves(params), jax.tree.leaves(again)))
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    a, f = params["groups"]["l0"]["attn"], params["groups"]["l0"]["ffn"]["dense"]
+    a, ffn = params["groups"]["l0"]["attn"], params["groups"]["l0"]["ffn"]
     want_std = {
         "embed": (params["embed"], 0.02), "head": (params["head"], d ** -0.5),
         "wq": (a["wq"], d ** -0.5), "wk": (a["wk"], d ** -0.5),
-        "wo": (a["wo"], (cfg.n_heads * hd) ** -0.5), "w_gate": (f["w_gate"], d ** -0.5),
-        "w_down": (f["w_down"], cfg.d_ff ** -0.5),
+        "wo": (a["wo"], (cfg.n_heads * hd) ** -0.5),
     }
+    if "dense" in ffn:
+        f = ffn["dense"]
+        want_std.update(w_gate=(f["w_gate"], d ** -0.5), w_down=(f["w_down"], cfg.d_ff ** -0.5))
+    else:
+        f = ffn["moe"]
+        want_std.update(router=(f["router"], 0.02), w_gate=(f["w_gate"], d ** -0.5),
+                        w_up=(f["w_up"], d ** -0.5), w_down=(f["w_down"], cfg.moe_d_ff ** -0.5),
+                        shared_w_down=(f["shared"]["w_down"],
+                                       (cfg.n_shared_experts * cfg.moe_d_ff) ** -0.5))
+    for i in range(cfg.first_k_dense):
+        pre = params[f"prelude_{i}"]
+        want_std[f"prelude_{i} w_down"] = (pre["ffn"]["dense"]["w_down"], cfg.dense_d_ff ** -0.5)
+        for name in ("norm1", "norm2"):
+            assert torch.equal(pre[name], torch.ones(d))
     for name, (t, std) in want_std.items():
         assert abs(float(t.std()) / std - 1.0) < 0.06, name
         assert abs(float(t.mean())) < 0.05 * std * 10, name
+    n_group_layers = cfg.n_layers - cfg.first_k_dense
     for name in ("norm1", "norm2"):
-        assert torch.equal(params["groups"]["l0"][name], torch.ones(cfg.n_layers, d))
+        assert torch.equal(params["groups"]["l0"][name], torch.ones(n_group_layers, d))
     assert torch.equal(params["final_norm"], torch.ones(d))
     for b in ("bq", "bk", "bv"):
         assert (b in a) == cfg.qkv_bias
@@ -305,6 +320,18 @@ def test_port_initialiser_shapes_dtypes_and_std(arch):
             assert not a[b].any()
     bf = get_model(dataclasses.replace(cfg, dtype="bfloat16")).init_params(seed=3, device="cpu")
     assert all(t.dtype == torch.bfloat16 for t in jax.tree.leaves(bf))
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-125m", "whisper-tiny",
+                                  "internvl2-1b"])
+def test_check_supported_still_refuses_unported_families(arch):
+    """MoE FFNs and prelude layers are served now; Mamba / xLSTM blocks, the
+    encoder-decoder and vision tokens are still refused, full and reduced."""
+    from repro_torch.models import lm
+
+    for ref_cfg in (jconfigs.get_config(arch), jconfigs.get_reduced(arch)):
+        with pytest.raises(NotImplementedError, match="item 11"):
+            lm.check_supported(model_config_from_dict(dataclasses.asdict(ref_cfg)))
 
 
 def test_lm_params_from_arrays_keeps_bf16_bits():
