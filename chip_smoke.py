@@ -27,7 +27,10 @@ build_schedule(standard_fault_mix(1.0, ...)))``) and the WAN layer
 gates run through ``FleetTrafficSim`` and ``SessionTrafficSim``.  The
 serving launcher (``repro_torch.launch.serve``: ``serve_sync`` and
 ``serve_online``) drives the replicas and the gateway end to end, with the
-audit tap and the device route statistics on.
+audit tap and the device route statistics on.  The MoE decoders
+(deepseek-moe-16b, llama4-scout) and the recurrent families (the Mamba-2
+hybrid jamba-1.5-large-398b at full width, xlstm-125m at full width and
+depth) are served through the same ``ServeEngine``.
 
 1. set-up: TF32 off, the card's name and power limit, both fleets, the
    queries and seeded telemetry;
@@ -49,7 +52,9 @@ audit tap and the device route statistics on.
    phase 3h's head layouts (deepseek-moe-16b's G = 1: flash [1, 16, S,
    128] against 16 kv heads at S 2048 and 1000, decode of 8 slots against
    [8, 2048, 16, 128]; llama4-scout's G = 5: flash [1, 40, S, 128] against
-   8 kv heads, decode of 4 slots against [4, 1024, 8, 128]), bf16 and f32;
+   8 kv heads, decode of 4 slots against [4, 1024, 8, 128]) and phase 3i's
+   (Jamba's G = 8: flash [1, 64, S, 128] against 8 kv heads at S 1100 and
+   257, decode of 4 slots against [4, 1280, 8, 128]), bf16 and f32;
 3. the single-device path with the launch counters set to 0: every
    kernel-path decision equal to the plain path's on the same card, every
    counter risen by exactly one launch per route, a per-query telemetry
@@ -87,7 +92,7 @@ audit tap and the device route statistics on.
    (a) ``standard_fault_mix(1.0, 10005, 86400)`` compiled by
    ``build_schedule`` on the card (timed, and its crash recurrence alone),
    then PRAG, SONAR, SONAR-LB and SONAR-FT ``BatchAgent`` episodes of 256
-   tasks (4 turns at most, a share starting inside the partition and the
+   tasks (2 turns at most, a share starting inside the partition and the
    blackout) on the chaos platform; every turn's decisions and every record
    equal to the plain path's, one BM25, one fused stage 2 and (network-aware)
    one per-query QoS launch per turn; (b) ``build_topology(6, seed=2024)``
@@ -146,6 +151,25 @@ audit tap and the device route statistics on.
    its 48 layers (16 experts top-1 + 1 shared, 40/8 heads), 8 requests
    through 4 slots of cap 1024, the gates of (a).  Each model is freed
    before the next is drawn;
+3i. the recurrent families, with the counters set to 0 before each serving
+   run: (a) jamba-1.5-large-398b at full width (d_model 8192, 64/8 heads,
+   d_ff 24576, Mamba-2 d_state 16, 256 heads of 64, chunk 256, vocab 65536,
+   bf16) cut to one period of its block pattern (8 of 72 layers: attention
+   + 7 Mamba, MoE at layers 1/3/5/7) and 8 of its 16 experts (top-2), the
+   cut logged; 8 requests with prompts of 3, 255, 256, 257, 511, 700, 1024
+   and 1100 tokens, 16 new each, through 4 slots of cap 1280, with 3h's
+   gates: one ``flash_attention`` launch per admitted request and one
+   ``decode_attention`` launch per decode step, the plain path routing by
+   itself and with the kernel path's expert choices; (b) one Mamba block at
+   Jamba's full width in f32: ``ssd_chunked`` against ``ssd_scan_ref`` on
+   600 tokens (rtol = atol = 1e-4) and ``mamba_apply`` over 600 tokens plus
+   8 ``mamba_decode`` steps against ``mamba_apply`` over 608 (2e-3), the
+   reference's bounds; (c) xlstm-125m at full width and depth (12 layers,
+   mLSTM and sLSTM alternating), bf16, 16 requests (prompts of 64 to 512
+   tokens, 32 new each) through 8 slots, no kernel launched; (d) the same
+   in f32 twice, mLSTM's prefill chunked and through ``mlstm_scan_ref``:
+   every first row of logits within ``F32_SERVE_TOL``, the greedy tokens
+   equal;
 4. times: each kernel's median over CUDA-event-timed launches beside its
    plain version, one library call where there is one, and its bound; the
    end-to-end ``route_texts`` time per batch on both paths; a profile of one
@@ -168,7 +192,11 @@ audit tap and the device route statistics on.
    gateway at 10,005 replicas, with a profile; a profile of one 1536-token
    prefill and one 8-slot decode step of deepseek-moe-16b (device busy
    share, the attention kernels' and the expert products' shares) and the
-   decode step against its byte bound.
+   decode step against its byte bound; the same for phase 3i's Jamba (a
+   1024-token prefill and a 4-slot decode step) and xlstm-125m (a 512-token
+   prefill and an 8-slot decode step), with the shares of the port's
+   profiler labels (the SSD chunk loop, the Mamba, mLSTM and sLSTM mixers,
+   the expert products).
 
 The line before the last is the ``kernels`` JSON object; the last is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
@@ -1046,14 +1074,19 @@ def main(rehearse: bool) -> None:
 
         # phase 3h's head layouts: deepseek-moe-16b's MHA (16 / 16 heads, G = 1:
         # S_att, the ragged S, 8 slots of cap S_att) and llama4-scout's G = 5
-        # (40 / 8 heads: S_att, the ragged S, 4 slots of cap S_att / 2)
+        # (40 / 8 heads: S_att, the ragged S, 4 slots of cap S_att / 2); phase
+        # 3i's Jamba layout, G = 8 (64 / 8 heads: prompts of 1100 and 257
+        # tokens, 4 slots of cap 1280)
         att_err = {}
         half = S_att // 2
+        cap_j = S_att * 5 // 8
         flash_cases = [(S, 16, 8) for S in (S_att, half - 24, 16)] \
-            + [(S, hq, hkv) for hq, hkv in ((16, 16), (40, 8)) for S in (S_att, half - 24)]
+            + [(S, hq, hkv) for hq, hkv in ((16, 16), (40, 8)) for S in (S_att, half - 24)] \
+            + [(S, 64, 8) for S in (half + 76, 257)]
         dec_lens = [1, S_att, 63, 64, 65, half - 24, S_att - 1, 200]
         decode_cases = [(S_att, dec_lens, 16, 8), (256, [17, 19, 21, 23], 16, 8),
-                        (S_att, dec_lens, 16, 16), (half, [1, half, 513, half - 24], 40, 8)]
+                        (S_att, dec_lens, 16, 16), (half, [1, half, 513, half - 24], 40, 8),
+                        (cap_j, [4, min(257, cap_j), cap_j - 256, cap_j], 64, 8)]
         for dt in (torch.bfloat16, torch.float32):
             tol = ATTN_TOL[str(dt).split(".")[1]]
             for S, hq, hkv in flash_cases:
@@ -1593,7 +1626,7 @@ def main(rehearse: bool) -> None:
         f"down share {chaos.down.mean():.4f}, stale share {chaos.stale.mean():.4f}, "
         f"degraded share {(chaos.degrade > 1.0).mean():.4f}")
     part = faults[0]
-    ticks_3f = agentlib.spread_start_ticks(n_q, n_steps_day, 4, 1, 0, 32, 0)
+    ticks_3f = agentlib.spread_start_ticks(n_q, n_steps_day, 2, 1, 0, 32, 0)
     in_part = int(np.sum((ticks_3f * 10.0 >= part.start_s)
                          & (ticks_3f * 10.0 < part.start_s + part.duration_s)))
     in_stale = int(np.sum(chaos.stale[0, np.clip(ticks_3f, 0, n_steps_day - 1)]))
@@ -1603,7 +1636,7 @@ def main(rehearse: bool) -> None:
         eng = make_engine(algo, servers, cfg, device=dev, index=index, use_kernels=use_kernels)
         turns = record_routes(eng)
         t = time.perf_counter()
-        recs = agentlib.BatchAgent(plat, eng, max_turns=4).run_benchmark(fq, ticks_per_query=32)
+        recs = agentlib.BatchAgent(plat, eng, max_turns=2).run_benchmark(fq, ticks_per_query=32)
         sync()
         return (recs, turns, plat), time.perf_counter() - t
 
@@ -1987,11 +2020,12 @@ def main(rehearse: bool) -> None:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
 
-    def moe_model(arch, tag, n_layers=None, dtype="bfloat16"):
-        """The config at full width (reduced in the rehearsal), cut to
-        ``n_layers``, and its weights drawn on the card from seed 0."""
+    def draw_model(arch, tag, dtype="bfloat16", **cut):
+        """The config at full width (reduced in the rehearsal), cut as
+        ``cut`` says (n_layers, n_experts), and its weights drawn on the card
+        from seed 0 (a stacked weight one layer at a time)."""
         full = lm_configs.get_reduced(arch) if rehearse else lm_configs.get_config(arch)
-        cut = {} if n_layers is None else dict(n_layers=min(n_layers, full.n_layers))
+        cut = {k: min(v, getattr(full, k)) for k, v in cut.items() if v is not None}
         cfg_ = dataclasses.replace(full, dtype=dtype, attn_impl="pallas", **cut)
         free_card()
         t0 = time.perf_counter()
@@ -2005,50 +2039,63 @@ def main(rehearse: bool) -> None:
             fail(f"phase {tag}: {n_:,} parameters drawn, param_counts() says {want:,}")
         mem = (f", peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
                if dev.type == "cuda" else "")
-        log(f"phase {tag}: {cfg_.name}: {cfg_.n_layers} of {full.n_layers} layers "
-            f"({cfg_.first_k_dense} dense prelude, d_ff {cfg_.ffn_hidden(0)}), d_model "
-            f"{cfg_.d_model}, {cfg_.n_heads}/{cfg_.n_kv_heads} heads of "
-            f"{cfg_.resolved_head_dim}, {cfg_.n_experts} routed experts top-"
-            f"{cfg_.experts_per_token} + {cfg_.n_shared_experts} shared of d_ff "
-            f"{cfg_.moe_d_ff}, vocab {cfg_.padded_vocab}, {dtype}: {n_:,} parameters "
+        kinds = cfg_.layer_kinds()
+        blocks = ", ".join(f"{kinds.count(k)} {k}" for k in dict.fromkeys(kinds))
+        cuts = ", ".join(f"{k} {v} of {getattr(full, k)}" for k, v in cut.items())
+        ffn = (f"{cfg_.first_k_dense} dense prelude, d_ff {cfg_.ffn_hidden(0)}; "
+               if cfg_.d_ff or cfg_.first_k_dense else "")
+        moe = (f", {cfg_.n_experts} routed experts top-{cfg_.experts_per_token} + "
+               f"{cfg_.n_shared_experts} shared of d_ff {cfg_.moe_d_ff} every "
+               f"{cfg_.moe_every}" if cfg_.n_experts else "")
+        log(f"phase {tag}: {cfg_.name}: {cfg_.n_layers} of {full.n_layers} layers ({blocks}; "
+            f"{ffn}cut: {cuts or 'nothing'}), d_model {cfg_.d_model}, {cfg_.n_heads}/"
+            f"{cfg_.n_kv_heads} heads of {cfg_.resolved_head_dim}{moe}, vocab "
+            f"{cfg_.padded_vocab}, {dtype}: {n_:,} parameters "
             f"({n_ * cfg_.torch_dtype.itemsize / 1e9:.2f} GB) drawn on {dev} in "
             f"{time.perf_counter() - t0:.2f} s{mem}")
         return cfg_, params_
 
     failures_3h = []
 
-    def moe_serve(tag, cfg_, params_, seed, n_req, lens, n_slots, cap, max_new, tol, runs):
-        """``n_req`` seeded prompts of ``lens`` tokens through
-        `serve_requests` with the expert log and the plain ``runs``; the
-        launch gates.  Breaches are collected in ``failures_3h``."""
+    def moe_serve(tag, cfg_, params_, seed, n_req, lens, n_slots, cap, max_new, tol, runs,
+                  failures=failures_3h, phase="3h"):
+        """``n_req`` seeded prompts of ``lens`` tokens (a (low, high) range,
+        or the lengths themselves) through `serve_requests` with the expert
+        log and the plain ``runs``; the launch gates (one flash launch per
+        attention layer per admitted request, one decode launch per attention
+        layer per decode step).  Breaches are collected in ``failures``."""
         srng_ = np.random.default_rng(seed)
-        plens = srng_.integers(lens[0], lens[1] + 1, n_req)
+        plens = srng_.integers(lens[0], lens[1] + 1, n_req) if len(lens) == 2 \
+            else np.asarray(lens)
         prompts_ = [srng_.integers(0, cfg_.vocab_size, int(n)).astype(np.int32) for n in plens]
         sv_ = serve_requests(cfg_, dataclasses.replace(cfg_, attn_impl="chunked"), params_, dev,
                              n_slots=n_slots, cap=cap, prompts=prompts_, max_new=max_new,
-                             tol=tol, experts=runs, failures=failures_3h)
+                             tol=tol, experts=runs, failures=failures)
         sl = sv_["launches"]
-        want_ = {"flash_attention": cfg_.n_layers * sv_["admitted"],
-                 "decode_attention": cfg_.n_layers * sv_["steps"]}
+        n_att = cfg_.layer_kinds().count("attn")
+        want_ = {"flash_attention": n_att * sv_["admitted"],
+                 "decode_attention": n_att * sv_["steps"]}
         if not rehearse:
             for name, n in want_.items():
                 if sl[name] != n:
-                    fail(f"phase 3h ({tag}): {name}: {sl[name]} launches, expected {n} "
-                         f"({cfg_.n_layers} layers x {n // cfg_.n_layers})")
+                    fail(f"phase {phase} ({tag}): {name}: {sl[name]} launches, expected {n} "
+                         f"({n_att} attention layers x {n // n_att})")
             others = {k: v for k, v in sl.items() if k not in want_ and v}
             if others:
-                fail(f"phase 3h ({tag}): the serving path launched routing kernels: {others}")
+                fail(f"phase {phase} ({tag}): the serving path launched routing kernels: "
+                     f"{others}")
         mem = (f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
                if dev.type == "cuda" else "")
-        log(f"phase 3h ({tag}): served {n_req} requests (prompts {sorted(plens.tolist())} "
+        log(f"phase {phase} ({tag}): served {n_req} requests (prompts {sorted(plens.tolist())} "
             f"tokens, {max_new} new each) through {n_slots} slots of cap {cap} in "
-            f"{sv_['steps']} decode steps, {sv_['wall_s']:.3f} s wall (expert choices logged), "
-            f"{sv_['tokens']} tokens ({sv_['tokens'] / sv_['wall_s']:.1f} tokens/s, host "
-            f"clock); launches {sl}{mem} [{smi_tag}]")
+            f"{sv_['steps']} decode steps, {sv_['wall_s']:.3f} s wall (expert choices logged; "
+            f"{1e3 * sv_['wall_s'] / sv_['steps']:.1f} ms an engine step, its prefills "
+            f"included), {sv_['tokens']} tokens ({sv_['tokens'] / sv_['wall_s']:.1f} tokens/s, "
+            f"host clock); launches {sl}{mem} [{smi_tag}]")
         for run, st in sv_["by_run"].items():
             gaps = [g for _, _, g in st["argmax_diffs"]]
             where = "on the rows where none differs" if run == "own" else "on every row"
-            log(f"phase 3h ({tag}): teacher-forced plain path (attn_impl='chunked', {run} "
+            log(f"phase {phase} ({tag}): teacher-forced plain path (attn_impl='chunked', {run} "
                 f"routing, {st['wall_s']:.3f} s): {st['expert_pair_diffs']} of "
                 f"{st['expert_pairs']} (token, MoE layer) pairs choose other experts, in "
                 f"{st['rows_expert_diff']} of {len(prompts_) * max_new} rows of logits; "
@@ -2061,7 +2108,7 @@ def main(rehearse: bool) -> None:
         return sv_
 
     # (a) deepseek-moe-16b at full width and depth
-    ds_cfg, ds_params = moe_model("deepseek-moe-16b", "3h (a)")
+    ds_cfg, ds_params = draw_model("deepseek-moe-16b", "3h (a)")
     sv_a = moe_serve("a", ds_cfg, ds_params, 7, 16, (64, 1536), 8, 2048, 32, SERVE_TOL,
                      ("own", "forced"))
     h_launches = sv_a["launches"]
@@ -2123,7 +2170,7 @@ def main(rehearse: bool) -> None:
     del ds_params, lay, lay_h, xm, y1, y2, card_d, own, forced, y_h
 
     # (b) deepseek-moe-16b at 4 layers (the prelude + 3 MoE layers) in f32
-    f32_cfg, f32_params = moe_model("deepseek-moe-16b", "3h (b)", n_layers=4, dtype="float32")
+    f32_cfg, f32_params = draw_model("deepseek-moe-16b", "3h (b)", "float32", n_layers=4)
     sv_b = moe_serve("b", f32_cfg, f32_params, 8, 6, (64, 1024), 4, 2048, 8, F32_SERVE_TOL,
                      ("own",))
     if sv_b["expert_pair_diffs"]:
@@ -2132,7 +2179,7 @@ def main(rehearse: bool) -> None:
     del f32_params
 
     # (c) llama4-scout-17b-a16e at full width over 4 of its 48 layers
-    sc_cfg, sc_params = moe_model("llama4-scout-17b-a16e", "3h (c)", n_layers=4)
+    sc_cfg, sc_params = draw_model("llama4-scout-17b-a16e", "3h (c)", n_layers=4)
     moe_serve("c", sc_cfg, sc_params, 9, 8, (64, 960), 4, 1024, 32, SERVE_TOL,
               ("own", "forced"))
     del sc_params
@@ -2140,6 +2187,150 @@ def main(rehearse: bool) -> None:
     log(f"phase 3h: {time.perf_counter() - t_3h:.1f} s in all")
     if failures_3h:
         fail("phase 3h: " + " | ".join(failures_3h))
+
+    # ----------------------------------------------------------------- 3i
+    # the recurrent families (the reduced configs in the rehearsal): (a)
+    # jamba-1.5-large-398b at full width, cut to 8 of its 72 layers (one
+    # period of its block pattern) and 8 of its 16 experts, bf16, served
+    # through both attention kernels against the plain path; (b) one of its
+    # Mamba blocks at full width in f32: the chunked SSD against the
+    # sequential oracle, decode against the full forward; (c) xlstm-125m at
+    # full width and depth, bf16; (d) the same in f32, its mLSTM prefill
+    # through the chunked form and through the sequential oracle.
+    from repro_torch.models import mamba as lm_mamba
+    from repro_torch.models import xlstm as lm_xlstm
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    t_3i = time.perf_counter()
+    failures_3i = []
+
+    # (a) Jamba at full width: prompts that straddle its SSD chunk of 256.
+    # The rehearsal's reduced Jamba (d_model 64, vocab 512) runs in f32: in
+    # bf16 its logits near 3 are multiples of 1/64, and the top two of a
+    # prompt tie within that step as often as not
+    jb_cfg, jb_params = draw_model("jamba-1.5-large-398b", "3i (a)",
+                                   "float32" if rehearse else "bfloat16",
+                                   n_layers=8, n_experts=8)
+    jb_lens = (3, 255, 256, 257, 511, 700, 1024, 1100)
+    sv_i = moe_serve("a", jb_cfg, jb_params, 11, len(jb_lens), jb_lens, 4, 1280, 16, SERVE_TOL,
+                     ("own", "forced"), failures=failures_3i, phase="3i")
+    i_launches = sv_i["launches"]
+    del jb_params
+    free_card()
+
+    # (b) one Mamba block at Jamba's full width in f32, on 608 tokens (two
+    # full chunks and a ragged one at 600)
+    mcfg = dataclasses.replace(jb_cfg, dtype="float32")
+    gm = torch.Generator(device=dev).manual_seed(5)
+    mp = {k: v[0] for k, v in lm_mamba.mamba_init(lm_nn.InitCtx(gen=gm, dtype=torch.float32),
+                                                  mcfg, 1).items()}
+    xb = torch.randn((1, 608, mcfg.d_model), generator=gm, device=dev)
+    with torch.no_grad():
+        xh_, dt_, Bm_, Cm_, _, _ = lm_mamba._project(mp, mcfg, xb[:, :600])
+        y_c, h_c = lm_mamba.ssd_chunked(xh_, dt_, Bm_, Cm_, mp["a_log"], mcfg.mamba_chunk)
+        y_s, h_s = lm_mamba.ssd_scan_ref(xh_, dt_, Bm_, Cm_, mp["a_log"])
+        ssd_err = [float((a - b).abs().max()) for a, b in ((y_c, y_s), (h_c, h_s))]
+        if not (torch.allclose(y_c, y_s, rtol=1e-4, atol=1e-4)
+                and torch.allclose(h_c, h_s, rtol=1e-4, atol=1e-4)):
+            failures_3i.append(f"phase 3i (b): ssd_chunked and ssd_scan_ref differ beyond "
+                               f"rtol = atol = 1e-4 (max abs y {ssd_err[0]:.3g}, h "
+                               f"{ssd_err[1]:.3g})")
+        y_full, _ = lm_mamba.mamba_apply(mp, mcfg, xb)
+        y0, st_b = lm_mamba.mamba_apply(mp, mcfg, xb[:, :600], return_state=True)
+        ys_b = [y0]
+        for t in range(600, 608):
+            y_t, st_b = lm_mamba.mamba_decode(mp, mcfg, xb[:, t:t + 1], st_b)
+            ys_b.append(y_t)
+        dec_err = float((torch.cat(ys_b, dim=1) - y_full).abs().max())
+        if not torch.allclose(torch.cat(ys_b, dim=1), y_full, rtol=2e-3, atol=2e-3):
+            failures_3i.append(f"phase 3i (b): mamba_apply + mamba_decode differ from "
+                               f"mamba_apply over 608 tokens by {dec_err:.3g} (bound 2e-3)")
+    log(f"phase 3i (b): one Mamba block at d_model {mcfg.d_model} (d_inner {mcfg.d_inner}, "
+        f"{mcfg.mamba_heads} heads of {mcfg.mamba_head_dim}, d_state {mcfg.mamba_d_state}, "
+        f"chunk {mcfg.mamba_chunk}), f32 on {dev}: ssd_chunked against ssd_scan_ref on 600 "
+        f"tokens, max abs y {ssd_err[0]:.3g} (|y| up to {float(y_s.abs().max()):.3g}), h "
+        f"{ssd_err[1]:.3g} (|h| up to {float(h_s.abs().max()):.3g}), bound rtol = atol = 1e-4; "
+        f"mamba_apply over 600 + 8 mamba_decode steps against mamba_apply over 608: max abs "
+        f"{dec_err:.3g} (|y| up to {float(y_full.abs().max()):.3g}), bound 2e-3 [{smi_tag}]")
+    del mp, xb, xh_, dt_, Bm_, Cm_, y_c, y_s, h_c, h_s, y_full, ys_b, st_b
+
+    # (c) xlstm-125m at full width and depth, bf16: 16 requests through 8 slots
+    xrng = np.random.default_rng(12)
+    x_lens = xrng.integers(64, 513, 16)
+    x_prompts = [xrng.integers(0, 50304, int(n)).astype(np.int32) for n in x_lens]
+
+    def xlstm_serve(cfg_, params_, scan_prefill=False):
+        """The prompts through a `ServeEngine` of 8 slots to `drain`, with
+        the launch counters set to 0 just before and read just after;
+        returns (requests, each request's first row of logits, steps, wall
+        s).  ``scan_prefill`` runs mLSTM's prefill through
+        `mlstm_scan_ref` in place of `mlstm_chunked`."""
+        rows = {}
+
+        class FirstRows(ServeEngine):
+            def _next_tokens(self, logits, reqs):
+                for i, r in enumerate(reqs):
+                    if r is not None and not r.generated:
+                        rows[r.rid] = logits[i].clone()
+                return super()._next_tokens(logits, reqs)
+
+        eng = FirstRows(get_model(cfg_), params_, n_slots=8, cap=1024, device=dev)
+        reqs = [Request(rid=i, tokens=t % cfg_.vocab_size, max_new_tokens=32)
+                for i, t in enumerate(x_prompts)]
+        for r in reqs:
+            eng.submit(r)
+        chunked = lm_xlstm.mlstm_chunked
+        if scan_prefill:
+            lm_xlstm.mlstm_chunked = lambda q, k, v, lf, li, chunk, state=None: \
+                lm_xlstm.mlstm_scan_ref(q, k, v, lf, li, state)
+        try:
+            sync()
+            ops.reset_launches()               # the xLSTM path's count starts here
+            t0 = time.perf_counter()
+            steps_ = eng.drain()
+            sync()
+            wall_ = time.perf_counter() - t0
+            launches_ = ops.launch_counts()    # ... and is read here
+        finally:
+            lm_xlstm.mlstm_chunked = chunked
+        if not all(r.done and len(r.generated) == 32 for r in reqs):
+            fail("phase 3i: an xlstm-125m request did not finish")
+        if any(launches_.values()):
+            fail(f"phase 3i: the xLSTM path (no attention layer) launched kernels: {launches_}")
+        return reqs, rows, steps_, wall_
+
+    xl_cfg, xl_params = draw_model("xlstm-125m", "3i (c)")
+    xreqs, _, xsteps, xwall = xlstm_serve(xl_cfg, xl_params)
+    xtok = sum(len(r.generated) for r in xreqs)
+    log(f"phase 3i (c): served {len(xreqs)} requests (prompts {sorted(x_lens.tolist())} tokens, "
+        f"32 new each) through 8 slots in {xsteps} decode steps, {xwall:.3f} s wall "
+        f"({1e3 * xwall / xsteps:.1f} ms an engine step, its prefills included), {xtok} tokens "
+        f"({xtok / xwall:.1f} tokens/s, host clock); no kernel launched (no attention layer) "
+        f"[{smi_tag}]")
+    del xl_params
+
+    # (d) the same in f32, mLSTM's prefill chunked and through its oracle
+    xf_cfg, xf_params = draw_model("xlstm-125m", "3i (d)", dtype="float32")
+    fa, rows_a, _, wall_a = xlstm_serve(xf_cfg, xf_params)
+    fb, rows_b, _, wall_b = xlstm_serve(xf_cfg, xf_params, scan_prefill=True)
+    pre_err = max(float((rows_a[i] - rows_b[i]).abs().max()) for i in rows_a)
+    same = [r.generated for r in fa] == [r.generated for r in fb]
+    if not pre_err <= F32_SERVE_TOL:
+        failures_3i.append(f"phase 3i (d): prefill logits of the chunked and sequential mLSTM "
+                           f"differ by {pre_err} (tolerance {F32_SERVE_TOL})")
+    if not same:
+        n_diff = sum(a.generated != b.generated for a, b in zip(fa, fb))
+        failures_3i.append(f"phase 3i (d): {n_diff} requests' greedy tokens differ between "
+                           "the chunked and sequential mLSTM prefill")
+    log(f"phase 3i (d): {xf_cfg.name} in f32, the same 16 requests: mLSTM prefill chunked "
+        f"({wall_a:.3f} s) and through mlstm_scan_ref ({wall_b:.3f} s, host clock): every "
+        f"prefill row within {pre_err:.3g} (tolerance {F32_SERVE_TOL}), greedy tokens "
+        f"{'equal' if same else 'DIFFERENT'} [{smi_tag}]")
+    del xf_params
+    free_card()
+    log(f"phase 3i: {time.perf_counter() - t_3i:.1f} s in all")
+    if failures_3i:
+        fail("phase 3i: " + " | ".join(failures_3i))
 
     # ------------------------------------------------------------------ 4
     def timed(fn, n=reps):
@@ -2297,26 +2488,28 @@ def main(rehearse: bool) -> None:
             bound=bound(2 * (2 * kd.numel() + 2 * qd.numel()), 4 * 8 * 16 * S_att * 128,
                         BF16_OPS_PER_S),
             shape=f"8 slots x 16 heads against [8, {S_att}, 8, 128] caches, bf16"))
-        # the attention kernels at phase 3h's head layouts, bf16: G = 1
-        # (deepseek-moe-16b: 16 / 16 heads; flash at S_att, decode of 8 slots
-        # of cap S_att) and G = 5 (llama4-scout: 40 / 8 heads; flash at S_att,
-        # decode of 4 slots of cap S_att / 2), each as a CUDA-event window
-        # and, on the card, as device time alone, beside the plain version,
-        # SDPA and the bound
-        for hq, hkv, nb, cap_ in ((16, 16, 8, S_att), (40, 8, 4, S_att // 2)):
-            qg, kg, vg = attn_rand((1, hq, S_att, 128), bf), attn_rand((1, hkv, S_att, 128), bf), \
-                attn_rand((1, hkv, S_att, 128), bf)
+        # the attention kernels at phase 3h's and 3i's head layouts, bf16:
+        # G = 1 (deepseek-moe-16b: 16 / 16 heads; flash at S_att, decode of 8
+        # slots of cap S_att), G = 5 (llama4-scout: 40 / 8 heads; flash at
+        # S_att, decode of 4 slots of cap S_att / 2) and G = 8 (Jamba: 64 / 8
+        # heads; flash at S_att / 2, decode of 4 slots of cap 5 S_att / 8),
+        # each as a CUDA-event window and, on the card, as device time alone,
+        # beside the plain version, SDPA and the bound
+        for hq, hkv, S_f, nb, cap_ in ((16, 16, S_att, 8, S_att), (40, 8, S_att, 4, S_att // 2),
+                                       (64, 8, S_att // 2, 4, S_att * 5 // 8)):
+            qg, kg, vg = attn_rand((1, hq, S_f, 128), bf), attn_rand((1, hkv, S_f, 128), bf), \
+                attn_rand((1, hkv, S_f, 128), bf)
             qn, kn, vn = attn_rand((nb, hq, 128), bf), attn_rand((nb, cap_, hkv, 128), bf), \
                 attn_rand((nb, cap_, hkv, 128), bf)
             kn_t, vn_t = kn.transpose(1, 2), vn.transpose(1, 2)
             lens_n = torch.full((nb,), cap_, dtype=torch.int32, device=dev)
             cases = (
-                (f"flash_attention [1, {hq}, {S_att}, 128] x {hkv} kv heads, causal",
+                (f"flash_attention [1, {hq}, {S_f}, 128] x {hkv} kv heads, causal",
                  lambda: ops.flash_attention(qg, kg, vg),
                  lambda: kref.mha_ref(qg, kg, vg, sm_scale=1 / math.sqrt(128)),
                  lambda: sdpa(qg, kg, vg, is_causal=True, enable_gqa=True),
                  bound(2 * (2 * qg.numel() + kg.numel() + vg.numel()),
-                       4 * hq * S_att * S_att * 128 / 2, BF16_OPS_PER_S)),
+                       4 * hq * S_f * S_f * 128 / 2, BF16_OPS_PER_S)),
                 (f"decode_attention {nb} slots x {hq} heads against [{nb}, {cap_}, {hkv}, 128] "
                  "caches", lambda: ops.decode_attention(qn, kn_t, vn_t, lens_n),
                  lambda: kref.decode_ref(qn.reshape(nb, hkv, hq // hkv, 128), kn_t, vn_t,
@@ -2573,6 +2766,77 @@ def main(rehearse: bool) -> None:
                 lambda: gw_online.route_batch(q16, pad_to=16), routing, calls=1)
     del gw_online
 
+    # device time by part of a model call: the attention kernels (by kernel
+    # name), aten::bmm (the expert products, and the SSD's and mLSTM's chunk
+    # products), and the port's profiler labels (each the device time of the
+    # kernels launched under it): the expert products, the Mamba, mLSTM and
+    # sLSTM mixers, and the SSD chunk loop within the Mamba mixer.  The raw
+    # tracer records are read directly: building the profiler's event tree
+    # takes ~17 s per 250,000 host records (an xLSTM prefill's sLSTM token
+    # loop), this pass about a tenth of that.
+    LABELS = ("netmcp.experts", "netmcp.mamba", "netmcp.ssd_chunks", "netmcp.mlstm",
+              "netmcp.slstm")
+
+    def breakdown(what, fn, calls=2):
+        """Wall, device busy and the parts' device ms per call of ``fn``
+        from a profile (taken again, up to three times, when the tracer
+        returns no device activity); returns (wall, busy or None, parts).
+        A device record is attributed to the host op it is linked to (its
+        ``linked_correlation_id``), and to a label when that op started
+        inside the label's host range."""
+        import bisect
+
+        fn()
+        sync()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        for _ in range(3):
+            with torch.profiler.profile(activities=acts) as prof:
+                t = time.perf_counter()
+                for _ in range(calls):
+                    fn()
+                sync()
+                wall = (time.perf_counter() - t) * 1e3 / calls
+            ops_, ranges, device = {}, {k: [] for k in LABELS}, []
+            for e in prof.profiler.kineto_results.events():
+                if e.device_type() == torch.autograd.DeviceType.CUDA:
+                    if not e.is_user_annotation() and not e.name().startswith("netmcp."):
+                        device.append((e.name(), e.duration_ns(), e.linked_correlation_id()))
+                elif e.linked_correlation_id() == 0:           # a host op or label
+                    ops_[e.correlation_id()] = (e.name(), e.start_ns())
+                    if e.name() in ranges:
+                        ranges[e.name()].append((e.start_ns(), e.end_ns()))
+            for r in ranges.values():
+                r.sort()
+            starts = {k: [a for a, _ in r] for k, r in ranges.items()}
+            busy = 0.0
+            parts = dict.fromkeys(("attention kernels", "aten::bmm") + LABELS, 0.0)
+            for name, dur, link in device:
+                busy += dur
+                if any(k in name for k in ("flash_", "decode_split", "decode_merge")):
+                    parts["attention kernels"] += dur
+                op = ops_.get(link)
+                if op is None:
+                    continue
+                if op[0] == "aten::bmm":
+                    parts["aten::bmm"] += dur
+                for k, r in ranges.items():
+                    i = bisect.bisect_right(starts[k], op[1]) - 1
+                    if i >= 0 and op[1] <= r[i][1]:
+                        parts[k] += dur
+            if busy:
+                break
+        if not busy:
+            log(f"phase 4: profile of {what}: not measured (wall {wall:.3f} ms; no device "
+                "activity traced)")
+            return wall, None, {}
+        busy = busy / calls / 1e6
+        parts = {k: v / calls / 1e6 for k, v in parts.items() if v}
+        log(f"phase 4: profile of {what}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+            f"({100 * busy / wall:.1f} %); " + ", ".join(
+                f"{k} {v:.3f} ms ({100 * v / busy:.1f} % of busy)" for k, v in parts.items())
+            + f" [{smi_tag}]")
+        return wall, busy, parts
+
     # the serving path's two calls at internlm2-1.8b's full width: one
     # prefill of 1536 tokens, one decode step of 8 slots at cache_len 1536
     # (the weights drawn again from the same seed)
@@ -2583,10 +2847,11 @@ def main(rehearse: bool) -> None:
     tok8 = torch.as_tensor(np.arange(8)[:, None], device=dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-        pre_wall, pre_busy = profile("prefill of 1536 tokens (internlm2-1.8b, bf16)",
-                                     lambda: lm.prefill(lm_params, {"tokens": t1536}))
-        dec_wall, dec_busy = profile("decode step of 8 slots at cache_len 1536 (internlm2-1.8b)",
-                                     lambda: lm.decode_step(lm_params, cache8, tok8, 1536))
+        pre_wall, pre_busy, _ = breakdown("prefill of 1536 tokens (internlm2-1.8b, bf16)",
+                                          lambda: lm.prefill(lm_params, {"tokens": t1536}))
+        dec_wall, dec_busy, _ = breakdown(
+            "decode step of 8 slots at cache_len 1536 (internlm2-1.8b)",
+            lambda: lm.decode_step(lm_params, cache8, tok8, 1536))
         def ms(x):
             return "not measured" if x is None else f"{x:.3f} ms"
 
@@ -2604,54 +2869,16 @@ def main(rehearse: bool) -> None:
     # 8 every expert runs its slots; the caches' 1537 rows of 8 slots; the
     # logits written)
     del lm_params, cache8
-    ds_cfg, ds_params = moe_model("deepseek-moe-16b", "4")
+    ds_cfg, ds_params = draw_model("deepseek-moe-16b", "4")
     ds = get_model(ds_cfg)
     t1536 = torch.as_tensor(np.random.default_rng(8).integers(0, ds_cfg.vocab_size, (1, 1536)),
                             device=dev)
     cache8 = ds.init_cache(8, 2048, device=dev)
     if dev.type == "cuda":
-        def moe_breakdown(what, fn, calls=2):
-            """Wall, device busy, attention-kernel and expert-product ms per
-            call of ``fn`` from a profile (taken again, up to three times,
-            when the tracer returns no device activity)."""
-            fn()
-            sync()
-            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-            for _ in range(3):
-                with torch.profiler.profile(activities=acts) as prof:
-                    t = time.perf_counter()
-                    for _ in range(calls):
-                        fn()
-                    sync()
-                    wall = (time.perf_counter() - t) * 1e3 / calls
-                busy = att = bmm = 0.0
-                for ev in prof.key_averages():
-                    if ev.device_type == torch.autograd.DeviceType.CUDA:
-                        d = getattr(ev, "self_device_time_total", 0) \
-                            or getattr(ev, "self_cuda_time_total", 0)
-                        busy += d
-                        if any(k in ev.key for k in ("flash_", "decode_split", "decode_merge")):
-                            att += d
-                    elif ev.key == "aten::bmm":
-                        bmm += getattr(ev, "device_time_total", 0) \
-                            or getattr(ev, "cuda_time_total", 0)
-                if busy:
-                    break
-            if not busy:
-                log(f"phase 4: profile of {what}: not measured (wall {wall:.3f} ms; no device "
-                    "activity traced)")
-                return wall, None
-            busy, att, bmm = (v / calls / 1e3 for v in (busy, att, bmm))
-            log(f"phase 4: profile of {what}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
-                f"({100 * busy / wall:.1f} %); attention kernels {att:.3f} ms "
-                f"({100 * att / busy:.1f} % of busy), expert products (aten::bmm) {bmm:.3f} ms "
-                f"({100 * bmm / busy:.1f} % of busy) [{smi_tag}]")
-            return wall, busy
-
         torch.cuda.reset_peak_memory_stats()
-        moe_breakdown(f"prefill of 1536 tokens ({ds_cfg.name}, bf16)",
-                      lambda: ds.prefill(ds_params, {"tokens": t1536}))
-        dwall, dbusy = moe_breakdown(
+        breakdown(f"prefill of 1536 tokens ({ds_cfg.name}, bf16)",
+                  lambda: ds.prefill(ds_params, {"tokens": t1536}))
+        dwall, dbusy, _ = breakdown(
             f"decode step of 8 slots at cache_len 1536 ({ds_cfg.name})",
             lambda: ds.decode_step(ds_params, cache8, tok8, 1536))
         isz = ds_cfg.torch_dtype.itemsize
@@ -2666,6 +2893,51 @@ def main(rehearse: bool) -> None:
             f"{dwall:.3f} ms wall; peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB [{smi_tag}]")
     del ds_params, cache8
+
+    # phase 3i's models at their calls (the weights drawn again from the same
+    # seed): Jamba (8 layers, 8 experts) one prefill of 1024 tokens and one
+    # decode step of 4 slots at cache_len 1024; xlstm-125m one prefill of 512
+    # tokens and one decode step of 8 slots.  Each decode step against its
+    # byte bound: every weight read once but the embedding's rows of the
+    # step's tokens (at C = 8 every expert runs its slots), each state read
+    # and written once, the attention cache's rows read, the logits written.
+    def decode_bound(cfg_, params_, cache_, n_slots, kv_rows):
+        isz = cfg_.torch_dtype.itemsize
+        w = sum(t.numel() * t.element_size() for t in _leaves(params_)) \
+            - (cfg_.padded_vocab - n_slots) * cfg_.d_model * isz
+        kv = cfg_.layer_kinds().count("attn") * 2 * n_slots * kv_rows * cfg_.n_kv_heads \
+            * cfg_.resolved_head_dim * isz
+        st = 2 * sum(t.numel() * t.element_size() for name, g in cache_["groups"].items()
+                     if isinstance(g, dict) for t in g.values())
+        return (w + kv + st + n_slots * cfg_.padded_vocab * 4) / HBM_BYTES_PER_S * 1e3, w, kv, st
+
+    for arch, tag_, cut_, n_pre, n_sl, pos in (
+            ("jamba-1.5-large-398b", "Jamba", dict(n_layers=8, n_experts=8), 1024, 4, 1024),
+            ("xlstm-125m", "xLSTM", {}, 512, 8, 512)):
+        p_cfg, p_params = draw_model(arch, "4", **cut_)
+        pm = get_model(p_cfg)
+        t_pre = torch.as_tensor(np.random.default_rng(8).integers(0, p_cfg.vocab_size,
+                                                                  (1, n_pre)), device=dev)
+        p_cache = pm.init_cache(n_sl, 1280, device=dev)
+        tok_n = torch.as_tensor(np.arange(n_sl)[:, None], device=dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+            # one call: xLSTM's prefill is ~50,000 launches (sLSTM's token loop)
+            breakdown(f"prefill of {n_pre} tokens ({p_cfg.name}, {p_cfg.n_layers} layers, bf16)",
+                      lambda: pm.prefill(p_params, {"tokens": t_pre}), calls=1)
+            dwall, dbusy, _ = breakdown(
+                f"decode step of {n_sl} slots at cache_len {pos} ({p_cfg.name})",
+                lambda: pm.decode_step(p_params, p_cache, tok_n, pos))
+            dbound, w_b, kv_b, st_b = decode_bound(p_cfg, p_params, p_cache, n_sl, pos + 1)
+            log(f"phase 4: {tag_} ({p_cfg.name}) decode step of {n_sl} slots: byte bound "
+                f"{dbound:.3f} ms ({w_b / 1e9:.3f} GB of weights, {kv_b / 1e9:.4f} GB of "
+                f"attention cache, {st_b / 1e9:.4f} GB of recurrent state read and written, at "
+                f"3.35 TB/s) against "
+                f"{'not measured' if dbusy is None else f'{dbusy:.3f} ms'} device, {dwall:.3f} "
+                f"ms wall; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+                f"GiB [{smi_tag}]")
+        del p_params, p_cache
+        free_card()
 
     kernels = [
         dict(name=r["name"], route="cuda", source=SOURCES[r["name"]],

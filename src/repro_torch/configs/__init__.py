@@ -1,15 +1,15 @@
 """Architecture registry and input shapes, twin of `repro.configs`.
 
-The port serves attention decoders with dense or MoE FFNs, so only their
-six architectures are here (`PORTED`): the dense GQA decoders
-internlm2-1.8b, qwen2-7b, yi-6b and minitron-4b, and the MoE decoders
-deepseek-moe-16b and llama4-scout-17b-a16e, each module exporting
-``CONFIG`` (the published shape) and ``reduced()`` (a tiny same-family
-config for CPU tests), byte for byte the reference's.  `get_config` and
-`get_reduced` raise `NotImplementedError` for the other families
-(Mamba-hybrid, xLSTM, audio, VLM): they are `ROADMAP.md` queue 1,
-item 11.  `ARCHS`, `SHAPES` and `cells` are the reference's grid,
-unchanged.
+The port serves decoder-only text models, so only their eight
+architectures are here (`PORTED`): the dense GQA decoders internlm2-1.8b,
+qwen2-7b, yi-6b and minitron-4b, the MoE decoders deepseek-moe-16b and
+llama4-scout-17b-a16e, the Mamba-2 hybrid jamba-1.5-large-398b and the
+xLSTM stack xlstm-125m, each module exporting ``CONFIG`` (the published
+shape) and ``reduced()`` (a tiny same-family config for CPU tests), byte
+for byte the reference's.  `get_config` and `get_reduced` raise
+`NotImplementedError` for the other families (audio, VLM): they are
+`ROADMAP.md` queue 1, item 11 (c).  `ARCHS`, `SHAPES` and `cells` are the
+reference's grid, unchanged.
 """
 from __future__ import annotations
 
@@ -31,9 +31,10 @@ ARCHS = [
     "internvl2-1b",
 ]
 
-# the attention decoders this port serves: dense GQA, then MoE
+# the decoder-only text models this port serves: dense GQA, MoE, then the
+# recurrent families
 PORTED = ("internlm2-1.8b", "qwen2-7b", "minitron-4b", "yi-6b", "deepseek-moe-16b",
-          "llama4-scout-17b-a16e")
+          "llama4-scout-17b-a16e", "jamba-1.5-large-398b", "xlstm-125m")
 
 # archs with sub-quadratic sequence mixing (run long_500k)
 SUBQUADRATIC = {"jamba-1.5-large-398b", "xlstm-125m"}
@@ -59,8 +60,8 @@ def _module(arch: str):
     if arch not in PORTED:
         if arch in ARCHS:
             raise NotImplementedError(
-                f"repro_torch.configs: {arch} is not ported yet (only the attention "
-                f"decoders {PORTED}); the other families are ROADMAP.md queue 1, item 11"
+                f"repro_torch.configs: {arch} is not ported yet (only the decoder-only "
+                f"text models {PORTED}); the other families are ROADMAP.md queue 1, item 11"
             )
         raise KeyError(f"unknown architecture {arch!r}")
     return importlib.import_module(

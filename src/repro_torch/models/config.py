@@ -2,9 +2,9 @@
 
 The same frozen dataclass, fields and defaults as the reference, so a
 configuration carried across (`convert.model_config_from_dict`) means the
-same thing.  The port serves attention decoders with dense or MoE FFNs;
-the other families' fields are kept so configurations and `param_counts`
-agree.
+same thing.  The port serves decoder-only text models (attention, Mamba-2
+and xLSTM blocks, dense or MoE FFNs); the other families' fields are kept
+so configurations and `param_counts` agree.
 
 ``attn_impl`` keeps the reference's values.  ``"naive"`` and
 ``"chunked"`` are the plain PyTorch attention paths; ``"pallas"`` means

@@ -1,43 +1,50 @@
-"""Decoder LM, twin of `repro.models.lm`, for attention decoders with
-dense or MoE FFNs.
+"""Decoder LM, twin of `repro.models.lm`: attention decoders with dense or
+MoE FFNs, Mamba-2 hybrids (Jamba) and xLSTM stacks.
 
 Parameters are the reference's tree: ``embed`` [padded_vocab, d],
 ``final_norm``, ``head`` [d, padded_vocab] (unless tied), one unstacked
 block ``prelude_{i}`` for each of the ``first_k_dense`` leading layers
 (DeepSeek-MoE's dense layer 0), and ``groups``, one entry per position of
 ``cfg.block_pattern`` whose tensors carry a leading layer axis (the
-reference's stacked scan groups).  `lm_forward` runs the prelude blocks,
-then walks the groups' layer axis in a Python loop instead of a scan.
+reference's stacked scan groups).  A block holds ``norm1`` and its mixer
+(``attn``, ``mamba``, ``mlstm`` or ``slstm``); attention and Mamba blocks
+add ``norm2`` and an FFN (dense or MoE by `ModelConfig.layer_is_moe`),
+mLSTM and sLSTM blocks carry their own projections and have neither.
+`lm_forward` runs the prelude blocks, then walks the groups' layer axis in
+a Python loop instead of a scan.
 
-The cache is ``{"prelude_{i}": (k, v), "groups": {"l0": (k, v)}}``: k/v
-[B, cap, Hkv, hd] for a prelude layer, [n_layers, B, cap, Hkv, hd] in the
-groups; decode updates it in place and returns the same tree.
+The cache has the same layout: ``{"prelude_{i}": entry, "groups": {"l0":
+entry, ...}}``, an entry being an attention layer's (k, v) [B, cap, Hkv,
+hd] or a recurrent block's state dict (`mamba.init_mamba_state`,
+`xlstm.init_mlstm_state`, `xlstm.init_slstm_state`), with a leading
+[n_layers] axis in the groups.  Decode updates every entry in place and
+returns the same tree.
 
-Ported: ``"attn"`` blocks with dense or MoE FFNs, prelude layers included.
-Mamba, mLSTM and sLSTM blocks, vision tokens and the encoder-decoder raise
-`NotImplementedError` (`ROADMAP.md` queue 1, item 11).
+Vision tokens and the encoder-decoder raise `NotImplementedError`
+(`ROADMAP.md` queue 1, item 11 (c)).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mb
 from repro_torch.models import mlp
+from repro_torch.models import xlstm as xl
 from repro_torch.models.config import ModelConfig
 from repro_torch.nn import core as nn
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise `NotImplementedError` for what the port does not serve yet."""
+    """Raise `NotImplementedError` for what the port does not serve yet:
+    the encoder-decoder and vision tokens."""
     why = None
     if cfg.is_encoder_decoder:
         why = "the encoder-decoder"
     elif cfg.n_vision_tokens:
         why = "vision tokens"
-    elif any(kind != "attn" for kind in cfg.layer_kinds()):
-        why = f"block kinds {sorted(set(cfg.layer_kinds()) - {'attn'})}"
     if why is not None:
         raise NotImplementedError(
             f"repro_torch: {cfg.name} needs {why}, which is not ported yet "
@@ -52,6 +59,16 @@ def _n_groups(cfg: ModelConfig) -> int:
     return rem // len(cfg.block_pattern)
 
 
+def _stack(trees: list):
+    """n trees of per-layer tensors -> one tree of [n, ...] tensors."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, tuple):
+        return tuple(_stack([t[i] for t in trees]) for i in range(len(first)))
+    return torch.stack(trees)
+
+
 def _unstack(tree, n: int) -> list:
     """A tree of [n, ...] tensors -> n trees of per-layer views."""
     if isinstance(tree, dict):
@@ -64,22 +81,54 @@ def _unstack(tree, n: int) -> list:
 
 
 # ---------------------------------------------------------------------------
-# One block (attention + FFN)
+# One block (mixer + FFN)
 # ---------------------------------------------------------------------------
 
-def block_init(ctx: nn.InitCtx, cfg: ModelConfig, layer_idx: int, n_layers: int) -> dict:
-    """``n_layers`` ``"attn"`` blocks like layer ``layer_idx``, stacked on a
-    leading axis (the reference's vmapped `stack_init`); one prelude block
-    is ``_unstack(block_init(..., 1), 1)[0]``."""
+class _Mixer(NamedTuple):
+    """A recurrent block kind's functions and its state's axes."""
+    init: Callable
+    apply: Callable          # full sequence, (y, state)
+    decode: Callable         # one token, (y, new state)
+    init_state: Callable
+    state_axes: dict
+
+
+_RECURRENT = {
+    "mamba": _Mixer(mb.mamba_init, mb.mamba_apply, mb.mamba_decode, mb.init_mamba_state,
+                    mb.MAMBA_STATE_AXES),
+    "mlstm": _Mixer(xl.mlstm_init, xl.mlstm_apply, xl.mlstm_decode, xl.init_mlstm_state,
+                    xl.MLSTM_STATE_AXES),
+    "slstm": _Mixer(xl.slstm_init, xl.slstm_apply, xl.slstm_decode, xl.init_slstm_state,
+                    xl.SLSTM_STATE_AXES),
+}
+
+
+def _has_ffn(kind: str) -> bool:
+    """Attention and Mamba blocks carry norm2 and an FFN; xLSTM blocks not."""
+    return kind in ("attn", "mamba")
+
+
+def _kind(cfg: ModelConfig, layer_idx: int) -> str:
     kind = cfg.layer_kinds()[layer_idx]
-    if kind != "attn":
-        raise NotImplementedError(f"repro_torch: {kind} blocks are not ported yet")
-    return {
-        "norm1": nn.ones(ctx, (n_layers, cfg.d_model)),
-        "attn": attn.attn_init(ctx, cfg, n_layers),
-        "norm2": nn.ones(ctx, (n_layers, cfg.d_model)),
-        "ffn": mlp.ffn_init(ctx, cfg, layer_idx, n_layers),
-    }
+    if kind != "attn" and kind not in _RECURRENT:
+        raise ValueError(f"unknown block kind {kind!r}")
+    return kind
+
+
+def block_init(ctx: nn.InitCtx, cfg: ModelConfig, layer_idx: int, n_layers: int) -> dict:
+    """``n_layers`` blocks like layer ``layer_idx``, stacked on a leading
+    axis (the reference's vmapped `stack_init`); one prelude block is
+    ``_unstack(block_init(..., 1), 1)[0]``."""
+    kind = _kind(cfg, layer_idx)
+    p = {"norm1": nn.ones(ctx, (n_layers, cfg.d_model))}
+    if kind == "attn":
+        p["attn"] = attn.attn_init(ctx, cfg, n_layers)
+    else:
+        p[kind] = _RECURRENT[kind].init(ctx, cfg, n_layers)
+    if _has_ffn(kind):
+        p["norm2"] = nn.ones(ctx, (n_layers, cfg.d_model))
+        p["ffn"] = mlp.ffn_init(ctx, cfg, layer_idx, n_layers)
+    return p
 
 
 def block_apply(
@@ -92,14 +141,28 @@ def block_apply(
     cache=None,
     cache_len=None,
 ):
-    """Returns (x, new_cache)."""
-    if kind != "attn":
-        raise NotImplementedError(f"repro_torch: {kind} blocks are not ported yet")
+    """Returns (x, new_cache).  In decode a recurrent block's new state is
+    written into ``cache`` in place (as attention writes its K/V), and
+    ``cache`` is returned.  A recurrent mixer runs under the profiler label
+    ``netmcp.<kind>``."""
     h = nn.rms_norm(x, p["norm1"], cfg.norm_eps)
-    if mode == "decode":
-        y, new_cache = attn.attn_decode(p["attn"], cfg, h, cache, cache_len)
+    if kind == "attn":
+        if mode == "decode":
+            y, new_cache = attn.attn_decode(p["attn"], cfg, h, cache, cache_len)
+        else:
+            y, new_cache = attn.attn_apply(p["attn"], cfg, h, positions)
     else:
-        y, new_cache = attn.attn_apply(p["attn"], cfg, h, positions)
+        mixer = _RECURRENT[kind]
+        with torch.profiler.record_function(f"netmcp.{kind}"):
+            if mode == "decode":
+                y, state = mixer.decode(p[kind], cfg, h, cache)
+                for name, t in state.items():
+                    cache[name].copy_(t)
+                new_cache = cache
+            else:
+                y, new_cache = mixer.apply(p[kind], cfg, h, return_state=True)
+    if not _has_ffn(kind):
+        return x + y, new_cache
     # The second norm reads the residual sum before it is rounded to the
     # model dtype, as the reference's compiled block does (XLA keeps the
     # bf16 add in f32 where it feeds the norm's f32 convert); the carried
@@ -142,10 +205,11 @@ def lm_forward(
     cache_len=None,
 ):
     """Returns (logits, new_cache): the last position's logits in
-    ``prefill`` (with the prompt's cache, [B, S, Hkv, hd] per prelude layer
-    and [n_layers, B, S, Hkv, hd] per group entry), the new token's in
-    ``decode`` (the cache updated in place at ``cache_len``).  Training, the
-    reference's third mode, is not ported yet."""
+    ``prefill`` (with the prompt's cache: an attention layer's k/v [B, S,
+    Hkv, hd], a recurrent block's state after the prompt, each with a
+    leading [n_layers] axis in the groups), the new token's in ``decode``
+    (the cache updated in place: K/V at ``cache_len``, the states whole).
+    Training, the reference's third mode, is not ported yet."""
     if mode not in ("prefill", "decode"):
         raise ValueError(f"lm_forward: unknown mode {mode!r}")
     if set(batch) - {"tokens"}:
@@ -165,21 +229,19 @@ def lm_forward(
     nG = _n_groups(cfg)
     layers = _unstack(p["groups"], nG)
     layer_cache = None if cache is None else _unstack(cache["groups"], nG)
-    prefill_kv = {f"l{j}": ([], []) for j in range(len(kinds))}
+    prefill_cache = {f"l{j}": [] for j in range(len(kinds))}
     for g in range(nG):
         for j, kind in enumerate(kinds):
             entry = None if layer_cache is None else layer_cache[g][f"l{j}"]
             x, c_new = block_apply(layers[g][f"l{j}"], cfg, kind, x, positions, mode, entry,
                                    cache_len)
             if mode == "prefill":
-                prefill_kv[f"l{j}"][0].append(c_new[0])
-                prefill_kv[f"l{j}"][1].append(c_new[1])
+                prefill_cache[f"l{j}"].append(c_new)
 
     x = nn.rms_norm(x, p["final_norm"], cfg.norm_eps)
     if mode == "prefill":
         new_cache = dict(prelude_kv)
-        new_cache["groups"] = {name: (torch.stack(ks), torch.stack(vs))
-                               for name, (ks, vs) in prefill_kv.items()}
+        new_cache["groups"] = {name: _stack(entries) for name, entries in prefill_cache.items()}
         x = x[:, -1:]                                      # only last-position logits
     else:
         new_cache = cache
@@ -194,35 +256,45 @@ def lm_forward(
 # Cache init (tree matches lm_forward's cache layout)
 # ---------------------------------------------------------------------------
 
-def block_cache(cfg: ModelConfig, layer_idx: int, batch: int, cap: int, device) -> tuple:
-    """Zeroed (k, v) [batch, cap, Hkv, hd] of one ``"attn"`` layer."""
-    kind = cfg.layer_kinds()[layer_idx]
-    if kind != "attn":
-        raise NotImplementedError(f"repro_torch: {kind} blocks are not ported yet")
-    return tuple(t[0] for t in attn.init_cache(cfg, 1, batch, cap, device))
+def block_cache(cfg: ModelConfig, layer_idx: int, batch: int, cap: int, device,
+                n_layers: Optional[int] = None):
+    """The empty cache of layer ``layer_idx``'s kind for ``batch`` sequences:
+    (k, v) [batch, cap, Hkv, hd] of an attention layer, a recurrent block's
+    state dict; with ``n_layers``, stacked on a leading layer axis."""
+    kind = _kind(cfg, layer_idx)
+    if kind == "attn":
+        kv = attn.init_cache(cfg, n_layers or 1, batch, cap, device)
+        return kv if n_layers is not None else tuple(t[0] for t in kv)
+    return _RECURRENT[kind].init_state(cfg, batch, device, n_layers)
 
 
-def block_cache_axes(cfg: ModelConfig, layer_idx: int) -> tuple:
-    kind = cfg.layer_kinds()[layer_idx]
-    if kind != "attn":
-        raise NotImplementedError(f"repro_torch: {kind} blocks are not ported yet")
-    return (attn.CACHE_AXES, attn.CACHE_AXES)
+def block_cache_axes(cfg: ModelConfig, layer_idx: int):
+    kind = _kind(cfg, layer_idx)
+    if kind == "attn":
+        return (attn.CACHE_AXES, attn.CACHE_AXES)
+    return _RECURRENT[kind].state_axes
+
+
+def _layer_axes(axes):
+    """Prefix every axes tuple of a block's axes tree with "layers"."""
+    if isinstance(axes, dict):
+        return {k: _layer_axes(v) for k, v in axes.items()}
+    if all(isinstance(a, str) for a in axes):
+        return ("layers",) + tuple(axes)
+    return tuple(_layer_axes(a) for a in axes)
 
 
 def lm_init_cache(cfg: ModelConfig, batch: int, cap: int, device) -> dict:
     cache: dict = {f"prelude_{i}": block_cache(cfg, i, batch, cap, device)
                    for i in range(cfg.first_k_dense)}
     nG = _n_groups(cfg)
-    cache["groups"] = {f"l{j}": attn.init_cache(cfg, nG, batch, cap, device)
+    cache["groups"] = {f"l{j}": block_cache(cfg, cfg.first_k_dense + j, batch, cap, device, nG)
                        for j in range(len(cfg.block_pattern))}
     return cache
 
 
 def lm_cache_axes(cfg: ModelConfig) -> dict:
     axes: dict = {f"prelude_{i}": block_cache_axes(cfg, i) for i in range(cfg.first_k_dense)}
-    axes["groups"] = {
-        f"l{j}": tuple(("layers",) + names
-                       for names in block_cache_axes(cfg, cfg.first_k_dense + j))
-        for j in range(len(cfg.block_pattern))
-    }
+    axes["groups"] = {f"l{j}": _layer_axes(block_cache_axes(cfg, cfg.first_k_dense + j))
+                      for j in range(len(cfg.block_pattern))}
     return axes

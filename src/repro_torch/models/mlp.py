@@ -140,15 +140,17 @@ def moe_ffn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor):
     of C in one product per weight.  The combine adds each token's K
     contributions ``yb[slot] * w_keep`` in the model dtype, in the row's
     sorted order (the order of the reference's scatter-add), through
-    gathers: no atomics, so a result is the same from run to run."""
+    gathers: no atomics, so a result is the same from run to run.  The
+    expert products run under the profiler label ``netmcp.experts``."""
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.experts_per_token
     C = _capacity(S, K, E, cfg.capacity_factor)
     buf, slot, token_of, w_keep, aux = _moe_dispatch(p, cfg, x, C)
 
-    xe = buf.transpose(0, 1).reshape(E, B * C, d)
-    h = nn.silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
-    yb = torch.bmm(h, p["w_down"]).reshape(E, B, C, d).transpose(0, 1).reshape(B, E * C, d)
+    with torch.profiler.record_function("netmcp.experts"):
+        xe = buf.transpose(0, 1).reshape(E, B * C, d)
+        h = nn.silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
+        yb = torch.bmm(h, p["w_down"]).reshape(E, B, C, d).transpose(0, 1).reshape(B, E * C, d)
 
     # each token's K entries, at their positions in the sorted order, in
     # that order (a stable sort by token keeps it)

@@ -42,11 +42,11 @@ def normal(ctx: InitCtx, shape, stddev: float = 0.02) -> torch.Tensor:
     shape = tuple(shape)
     if len(shape) < 3:
         v = torch.randn(shape, generator=ctx.gen, device=ctx.device, dtype=torch.float32)
-        return (v * stddev).to(ctx.dtype)
+        return v.mul_(stddev).to(ctx.dtype)
     out = torch.empty(shape, dtype=ctx.dtype, device=ctx.device)
     for layer in out:
         v = torch.randn(shape[1:], generator=ctx.gen, device=ctx.device, dtype=torch.float32)
-        layer.copy_((v * stddev).to(ctx.dtype))
+        layer.copy_(v.mul_(stddev))
     return out
 
 
@@ -81,12 +81,19 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) ->
     return out
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """1 / (1 + exp(-x)), each step in x's dtype: the reference's
+    `jax.nn.sigmoid` arithmetic, so bf16 activations round where the
+    reference's do (`torch.sigmoid` rounds once and differs in about a third
+    of bf16 outputs)."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
-    """x * sigmoid(x) with sigmoid = 1 / (1 + exp(-x)), each step in x's
-    dtype: the reference's `jax.nn.silu` arithmetic, so bf16 activations
-    round where the reference's do (`F.silu` rounds once and differs in
-    about a third of bf16 outputs)."""
-    return x * (1.0 / (1.0 + torch.exp(-x)))
+    """x * sigmoid(x), each step in x's dtype: the reference's `jax.nn.silu`
+    arithmetic (`F.silu` rounds once and differs in about a third of bf16
+    outputs)."""
+    return x * sigmoid(x)
 
 
 def swiglu(x, w_gate, w_up, w_down):

@@ -971,3 +971,116 @@ def test_moe_model_kernel_path_matches_plain_path(cuda):
                                    atol=tol["atol"] * float(lp.abs().max()))
     assert ops.launch_counts()["decode_attention"] == 9
     torch.testing.assert_close(ck["prelude_0"][0], cp["prelude_0"][0], **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernels_at_jamba_head_layout(cuda, dtype):
+    """Jamba-1.5-Large's attention layer: 64 query heads over 8 kv heads (G =
+    8), head dim 128; flash prefill at prompts that straddle its SSD chunk,
+    in the model's [B, S, H, D] layout, and decode of 4 slots against [4,
+    1280, 8, 128] caches."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    for S in (3, 257, 1100):
+        q = _randn(g, (1, S, 64, 128), dtype, cuda)
+        k, v = _randn(g, (1, S, 8, 128), dtype, cuda), _randn(g, (1, S, 8, 128), dtype, cuda)
+        got = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        want = kref.mha_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                            sm_scale=1 / math.sqrt(128), causal=True)
+        torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+    q = _randn(g, (4, 64, 128), dtype, cuda)
+    kc, vc = _randn(g, (4, 1280, 8, 128), dtype, cuda), _randn(g, (4, 1280, 8, 128), dtype, cuda)
+    lengths = torch.tensor([4, 257, 1024, 1280], dtype=torch.int32, device=cuda)
+    got = ops.decode_attention(q, kc.transpose(1, 2), vc.transpose(1, 2), lengths)
+    want = kref.decode_ref(q.reshape(4, 8, 8, 128), kc.transpose(1, 2), vc.transpose(1, 2),
+                           lengths.reshape(4, 1), sm_scale=1 / math.sqrt(128)).reshape(4, 64, 128)
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+
+
+def _hybrid_cfg(**over):
+    """A narrow Jamba-like hybrid: one attention layer (8 query heads over 1
+    kv head) and three Mamba-2 layers, MoE FFNs at layers 1 and 3."""
+    return ModelConfig(**dict(dict(
+        name="tiny-hybrid", family="hybrid", n_layers=4, d_model=512, n_heads=8, n_kv_heads=1,
+        d_ff=512, vocab_size=1000, block_pattern=("attn", "mamba", "mamba", "mamba"),
+        n_experts=4, experts_per_token=2, moe_d_ff=256, moe_every=2, mamba_d_state=16,
+        mamba_head_dim=64, mamba_chunk=64, dtype="float32", attn_impl="pallas"), **over))
+
+
+def test_hybrid_model_kernel_path_matches_plain_path(cuda):
+    """The narrow hybrid in float32 on the card: prefill (the SSD over three
+    chunks, the last ragged) and decode under attn_impl="pallas" (one flash
+    launch per prefill, one decode launch per step) against the plain
+    "naive" path on the same weights: logits and every Mamba state."""
+    from repro_torch.serving.engine import pad_cache_to_capacity
+
+    cfg = _hybrid_cfg()
+    plain = dataclasses.replace(cfg, attn_impl="naive")
+    params = get_model(cfg).init_params(seed=1, device=cuda)
+    toks = torch.randint(0, 1000, (2, 150), generator=torch.Generator(device=cuda).manual_seed(2),
+                         device=cuda)
+    tol = ATTN_TOL[torch.float32]
+    ops.reset_launches()
+    lk, ck = get_model(cfg).prefill(params, {"tokens": toks})
+    lp, cp = get_model(plain).prefill(params, {"tokens": toks})
+    assert ops.launch_counts()["flash_attention"] == 1
+    torch.testing.assert_close(lk, lp, rtol=tol["rtol"], atol=tol["atol"] * float(lp.abs().max()))
+    ck = pad_cache_to_capacity(ck, get_model(cfg).cache_axes(), 200)
+    cp = pad_cache_to_capacity(cp, get_model(cfg).cache_axes(), 200)
+    nt = toks[:, -1:]
+    for step in range(3):
+        lk, ck = get_model(cfg).decode_step(params, ck, nt, 150 + step)
+        lp, cp = get_model(plain).decode_step(params, cp, nt, 150 + step)
+        torch.testing.assert_close(lk, lp, rtol=tol["rtol"],
+                                   atol=tol["atol"] * float(lp.abs().max()))
+    assert ops.launch_counts()["decode_attention"] == 3
+    for j in (1, 2, 3):
+        for name in ("h", "conv"):
+            torch.testing.assert_close(ck["groups"][f"l{j}"][name], cp["groups"][f"l{j}"][name],
+                                       rtol=1e-4, atol=1e-4)
+
+
+def test_recurrent_scans_on_the_card_equal_their_cpu_run(cuda):
+    """`ssd_chunked`, `mlstm_chunked` and `slstm_cell` in float32 (TF32
+    off) on the card against their CPU runs on the same inputs, and each
+    chunked form against its sequential oracle on the card."""
+    from repro_torch.models import mamba as mb
+    from repro_torch.models import xlstm as xl
+    from repro_torch.nn import core as nn
+
+    g = torch.Generator().manual_seed(3)
+    xh, Bm, Cm = (torch.randn(s, generator=g) for s in ((2, 300, 8, 64), (2, 300, 16),
+                                                        (2, 300, 16)))
+    dt = mb.softplus(torch.randn((2, 300, 8), generator=g))
+    a_log = torch.randn(8, generator=g) * 0.5
+    y_h, h_h = mb.ssd_chunked(xh, dt, Bm, Cm, a_log, chunk=128)
+    y_c, h_c = mb.ssd_chunked(*(t.to(cuda) for t in (xh, dt, Bm, Cm, a_log)), chunk=128)
+    torch.testing.assert_close(y_c.cpu(), y_h, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h_c.cpu(), h_h, rtol=1e-4, atol=1e-4)
+    y_s, h_s = mb.ssd_scan_ref(*(t.to(cuda) for t in (xh, dt, Bm, Cm, a_log)))
+    torch.testing.assert_close(y_c, y_s, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h_c, h_s, rtol=1e-4, atol=1e-4)
+    q, k, v = (torch.randn((2, 300, 4, 32), generator=g) for _ in range(3))
+    lf = xl.log_sigmoid(torch.randn((2, 300, 4), generator=g) + 1)
+    li = torch.randn((2, 300, 4), generator=g)
+    h_h, s_h = xl.mlstm_chunked(q, k, v, lf, li, chunk=128)
+    h_c, s_c = xl.mlstm_chunked(*(t.to(cuda) for t in (q, k, v, lf, li)), chunk=128)
+    h_s, s_s = xl.mlstm_scan_ref(*(t.to(cuda) for t in (q, k, v, lf, li)))
+    torch.testing.assert_close(h_c.cpu(), h_h, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h_c, h_s, rtol=2e-4, atol=2e-4)
+    for name in ("C", "n", "m"):
+        torch.testing.assert_close(s_c[name].cpu(), s_h[name], rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(s_c[name], s_s[name], rtol=2e-4, atol=2e-4)
+    cfg = ModelConfig(name="tiny-xlstm", family="ssm", n_layers=2, d_model=128, n_heads=4,
+                      n_kv_heads=4, d_ff=0, vocab_size=1000, block_pattern=("mlstm", "slstm"),
+                      dtype="float32")
+    p = xl.slstm_init(nn.InitCtx(gen=torch.Generator().manual_seed(4), dtype=torch.float32),
+                      cfg, 1)
+    p = {"w": p["w"][0], "r": p["r"][0], "b": p["b"][0]}
+    x = torch.randn((2, 64, 128), generator=g)
+    st = xl.init_slstm_state(cfg, 2, "cpu")
+    h_h, s_h = xl.slstm_cell(p, cfg, x, st)
+    h_c, s_c = xl.slstm_cell({k_: t.to(cuda) for k_, t in p.items()}, cfg, x.to(cuda),
+                             {k_: t.to(cuda) for k_, t in st.items()})
+    torch.testing.assert_close(h_c.cpu(), h_h, rtol=1e-4, atol=1e-4)
+    for name in ("c", "n", "m", "h"):
+        torch.testing.assert_close(s_c[name].cpu(), s_h[name], rtol=1e-4, atol=1e-4)

@@ -271,12 +271,35 @@ def test_registry_grid_and_unported_families():
     assert on.audit_tap is not None and on.ensure_route_stats(3).n_servers == 3
 
 
-@pytest.mark.parametrize("arch", ARCHS + ("deepseek-moe-16b", "llama4-scout-17b-a16e"))
+def _mixer_std(cfg, kind: str, p: dict) -> dict:
+    """The reference's initial stds of a recurrent mixer's random leaves
+    (`repro.models.mamba.mamba_init`, `repro.models.xlstm`'s inits)."""
+    d = cfg.d_model
+    if kind == "mamba":
+        di = cfg.d_inner
+        return {"w_in": (p["w_in"], d ** -0.5), "conv_w": (p["conv_w"], 0.1),
+                "w_bc": (p["w_bc"], di ** -0.5), "w_dt": (p["w_dt"], 0.02),
+                "w_out": (p["w_out"], di ** -0.5)}
+    if kind == "mlstm":
+        di = int(cfg.mlstm_proj_factor * d)
+        return {"w_up": (p["w_up"], d ** -0.5), "w_q": (p["w_q"], di ** -0.5),
+                "w_v": (p["w_v"], di ** -0.5), "w_i": (p["w_i"], 0.02),
+                "w_f": (p["w_f"], 0.02), "w_down": (p["w_down"], di ** -0.5)}
+    dff = int(cfg.slstm_proj_factor * d)
+    return {"w": (p["w"], d ** -0.5), "r": (p["r"], 0.02),
+            "up w_gate": (p["up"]["w_gate"], d ** -0.5),
+            "up w_down": (p["up"]["w_down"], dff ** -0.5)}
+
+
+@pytest.mark.parametrize("arch", ARCHS + ("deepseek-moe-16b", "llama4-scout-17b-a16e",
+                                          "jamba-1.5-large-398b", "xlstm-125m"))
 def test_port_initialiser_shapes_dtypes_and_std(arch):
     """The port's own random weights: the reference's tree, shapes and dtype
-    (DeepSeek-MoE's dense prelude and the MoE leaves included), drawn in its
-    distributions (embedding std 0.02, fan-in normals, router std 0.02,
-    ones, zero biases), reproducibly from the seed."""
+    (DeepSeek-MoE's dense prelude, the MoE leaves and the Mamba, mLSTM and
+    sLSTM mixers included; Mamba's ``a_log`` f32 in every model dtype, as
+    in the reference), drawn in its distributions (embedding std 0.02,
+    fan-in normals, router std 0.02, ones, zero biases), reproducibly from
+    the seed."""
     jcfg, cfg = _pair(arch, "float32")
     ref_shapes = jax.tree.map(lambda a: a.shape,
                               jget_model(jcfg).init_params(jax.random.PRNGKey(0), abstract=True)[0])
@@ -287,21 +310,48 @@ def test_port_initialiser_shapes_dtypes_and_std(arch):
     again = get_model(cfg).init_params(seed=3, device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(jax.tree.leaves(params), jax.tree.leaves(again)))
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    a, ffn = params["groups"]["l0"]["attn"], params["groups"]["l0"]["ffn"]
-    want_std = {
-        "embed": (params["embed"], 0.02), "head": (params["head"], d ** -0.5),
-        "wq": (a["wq"], d ** -0.5), "wk": (a["wk"], d ** -0.5),
-        "wo": (a["wo"], (cfg.n_heads * hd) ** -0.5),
-    }
+    want_std = {"embed": (params["embed"], 0.02), "head": (params["head"], d ** -0.5)}
+    groups = params["groups"]
+    a = groups["l0"].get("attn")
+    if a is not None:
+        want_std.update(wq=(a["wq"], d ** -0.5), wk=(a["wk"], d ** -0.5),
+                        wo=(a["wo"], (cfg.n_heads * hd) ** -0.5))
+        for b in ("bq", "bk", "bv"):
+            assert (b in a) == cfg.qkv_bias
+            if b in a:
+                assert not a[b].any()
+    ffn = groups["l0"].get("ffn", {})
     if "dense" in ffn:
         f = ffn["dense"]
         want_std.update(w_gate=(f["w_gate"], d ** -0.5), w_down=(f["w_down"], cfg.d_ff ** -0.5))
-    else:
+    elif "moe" in ffn:
         f = ffn["moe"]
         want_std.update(router=(f["router"], 0.02), w_gate=(f["w_gate"], d ** -0.5),
                         w_up=(f["w_up"], d ** -0.5), w_down=(f["w_down"], cfg.moe_d_ff ** -0.5),
                         shared_w_down=(f["shared"]["w_down"],
                                        (cfg.n_shared_experts * cfg.moe_d_ff) ** -0.5))
+    n_stack = (cfg.n_layers - cfg.first_k_dense) // len(cfg.block_pattern)
+    for j, kind in enumerate(cfg.block_pattern):
+        g = groups[f"l{j}"]
+        if kind == "mamba":
+            m = g["mamba"]
+            assert not m["conv_b"].any() and not m["dt_bias"].any()
+            assert torch.equal(m["d_skip"], torch.ones(n_stack, cfg.mamba_heads))
+            torch.testing.assert_close(
+                m["a_log"], torch.log(torch.linspace(1.0, 16.0, cfg.mamba_heads)).expand(n_stack, -1))
+        elif kind == "mlstm":
+            m = g["mlstm"]
+            assert not m["b_i"].any() and torch.equal(m["b_f"], torch.ones(n_stack, cfg.n_heads))
+            assert torch.equal(m["norm"], torch.ones_like(m["norm"]))
+        elif kind == "slstm":
+            assert not g["slstm"]["b"].any()
+        if kind != "attn":
+            want_std.update({f"l{j} {k}": v for k, v in _mixer_std(cfg, kind, g[kind]).items()})
+        assert set(g) == ({"norm1", kind, "norm2", "ffn"} if kind in ("attn", "mamba")
+                          else {"norm1", kind})
+        for name in ("norm1", "norm2"):
+            if name in g:
+                assert torch.equal(g[name], torch.ones(n_stack, d))
     for i in range(cfg.first_k_dense):
         pre = params[f"prelude_{i}"]
         want_std[f"prelude_{i} w_down"] = (pre["ffn"]["dense"]["w_down"], cfg.dense_d_ff ** -0.5)
@@ -310,28 +360,29 @@ def test_port_initialiser_shapes_dtypes_and_std(arch):
     for name, (t, std) in want_std.items():
         assert abs(float(t.std()) / std - 1.0) < 0.06, name
         assert abs(float(t.mean())) < 0.05 * std * 10, name
-    n_group_layers = cfg.n_layers - cfg.first_k_dense
-    for name in ("norm1", "norm2"):
-        assert torch.equal(params["groups"]["l0"][name], torch.ones(n_group_layers, d))
     assert torch.equal(params["final_norm"], torch.ones(d))
-    for b in ("bq", "bk", "bv"):
-        assert (b in a) == cfg.qkv_bias
-        if b in a:
-            assert not a[b].any()
     bf = get_model(dataclasses.replace(cfg, dtype="bfloat16")).init_params(seed=3, device="cpu")
-    assert all(t.dtype == torch.bfloat16 for t in jax.tree.leaves(bf))
+    paths = [jax.tree_util.keystr(k) for k, _ in jax.tree_util.tree_leaves_with_path(bf)]
+    for path, t in zip(paths, jax.tree.leaves(bf)):
+        assert t.dtype == (torch.float32 if path.endswith("['a_log']") else torch.bfloat16), path
 
 
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-125m", "whisper-tiny",
                                   "internvl2-1b"])
 def test_check_supported_still_refuses_unported_families(arch):
-    """MoE FFNs and prelude layers are served now; Mamba / xLSTM blocks, the
+    """MoE FFNs, prelude layers and the Mamba, mLSTM and sLSTM blocks are
+    served now (jamba and xlstm, full and reduced, are accepted); the
     encoder-decoder and vision tokens are still refused, full and reduced."""
     from repro_torch.models import lm
 
     for ref_cfg in (jconfigs.get_config(arch), jconfigs.get_reduced(arch)):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            lm.check_supported(model_config_from_dict(dataclasses.asdict(ref_cfg)))
+        cfg = model_config_from_dict(dataclasses.asdict(ref_cfg))
+        if arch in configs.PORTED:
+            lm.check_supported(cfg)
+            assert get_model(cfg).cfg is cfg
+        else:
+            with pytest.raises(NotImplementedError, match="item 11"):
+                lm.check_supported(cfg)
 
 
 def test_lm_params_from_arrays_keeps_bf16_bits():

@@ -317,7 +317,9 @@ _BY_DESIGN = {
     # softmax_cross_entropy and layer_norm wait for training and whisper
     # (ROADMAP.md queue 1, item 11 (c) and (d))
     "models.attention": {"fsdp_gather", "maybe_constrain"},
+    "models.mamba": {"fsdp_gather"},
     "models.mlp": {"fsdp_gather"},
+    "models.xlstm": {"fsdp_gather"},
     "models.lm": {"amap", "stack_init", "fsdp_gather", "maybe_constrain", "lm_loss"},
     "nn.core": {"Annotated", "is_annotated", "unzip", "zip_trees", "layer_norm",
                 "softmax_cross_entropy"},
