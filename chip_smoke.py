@@ -30,7 +30,10 @@ serving launcher (``repro_torch.launch.serve``: ``serve_sync`` and
 audit tap and the device route statistics on.  The MoE decoders
 (deepseek-moe-16b, llama4-scout) and the recurrent families (the Mamba-2
 hybrid jamba-1.5-large-398b at full width, xlstm-125m at full width and
-depth) are served through the same ``ServeEngine``.
+depth) are served through the same ``ServeEngine``, and so are the
+encoder-decoder whisper-tiny (its requests bring audio frames) and the VLM
+internvl2-1b (its requests bring image patches), both at full width and
+depth.
 
 1. set-up: TF32 off, the card's name and power limit, both fleets, the
    queries and seeded telemetry;
@@ -54,7 +57,13 @@ depth) are served through the same ``ServeEngine``.
    [8, 2048, 16, 128]; llama4-scout's G = 5: flash [1, 40, S, 128] against
    8 kv heads, decode of 4 slots against [4, 1024, 8, 128]) and phase 3i's
    (Jamba's G = 8: flash [1, 64, S, 128] against 8 kv heads at S 1100 and
-   257, decode of 4 slots against [4, 1280, 8, 128]), bf16 and f32;
+   257, decode of 4 slots against [4, 1280, 8, 128]) and phase 3j's, head
+   dim 64 (whisper's encoder, non-causal [1, 6, 1500, 64] against 6 kv
+   heads; its cross-attention, non-causal [1, 6, Sq, 64] against [1, 6,
+   1500, 64] at Sq 1, 77 and 448; internvl2's G = 7, causal [1, 14, S, 64]
+   against 2 kv heads at S 257 and 1280; decode at G = 7, 8 slots against
+   [8, 2048, 2, 64] with lengths 1 to 2048; whisper's cross decode, 8 slots
+   against [8, 1500, 6, 64], every length 1500), bf16 and f32;
 3. the single-device path with the launch counters set to 0: every
    kernel-path decision equal to the plain path's on the same card, every
    counter risen by exactly one launch per route, a per-query telemetry
@@ -170,6 +179,26 @@ depth) are served through the same ``ServeEngine``.
    in f32 twice, mLSTM's prefill chunked and through ``mlstm_scan_ref``:
    every first row of logits within ``F32_SERVE_TOL``, the greedy tokens
    equal;
+3j. the encoder-decoder and vision tokens, with the counters set to 0
+   before each serving run: (a) whisper-tiny at full width and depth (4
+   encoder and 4 decoder layers, d_model 384, 6/6 heads of 64, vocab
+   51865, bf16), 16 requests, each with its own seeded frames [1500, 384]
+   (the stubbed conv frontend's output), prompts of 1 to 400 tokens, 32
+   new each, through 8 slots of cap 448: every request finishes,
+   ``flash_attention`` launches 12 times per admitted request (4 encoder,
+   4 decoder self, 4 cross; the cross ones non-causal with Sq != Sk) and
+   ``decode_attention`` 8 times per decode step (4 self, 4 cross over the
+   full static cache of 1500 rows), teacher-forced through the plain path
+   as in 3c (``SERVE_TOL``; first tokens equal but where the plain path's
+   logits of the two tokens lie closer than the two paths' difference on
+   that row, a bf16 tie whose order is rounding's, counted and logged); (b)
+   the same in f32, every greedy token equal on the two paths and the
+   logits within ``F32_SERVE_TOL``; (c) internvl2-1b at full width and depth (24 layers,
+   d_model 896, 14/2 heads of 64, QKV bias, vocab 151655, bf16), 16
+   requests, each with its own seeded patches [256, 896] (the stubbed
+   vision frontend's output), prompts of 16 to 1536 tokens, 32 new each,
+   through 8 slots of cap 2048: 24 flash launches per admitted request, 24
+   decode launches per step, held as (a); (d) the same in f32, as (b);
 4. times: each kernel's median over CUDA-event-timed launches beside its
    plain version, one library call where there is one, and its bound; the
    end-to-end ``route_texts`` time per batch on both paths; a profile of one
@@ -196,7 +225,12 @@ depth) are served through the same ``ServeEngine``.
    1024-token prefill and a 4-slot decode step) and xlstm-125m (a 512-token
    prefill and an 8-slot decode step), with the shares of the port's
    profiler labels (the SSD chunk loop, the Mamba, mLSTM and sLSTM mixers,
-   the expert products).
+   the expert products); phase 3j's five attention layouts alone beside
+   the plain versions, SDPA and their bounds; a profile of one whisper-tiny
+   prefill (1500 frames through the encoder and a 400-token prompt) and one
+   8-slot decode step, and of one internvl2-1b prefill (256 patches + 1024
+   tokens) and one 8-slot decode step at cache_len 1280, each decode step
+   against its byte bound.
 
 The line before the last is the ``kernels`` JSON object; the last is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
@@ -364,8 +398,9 @@ class ExpertLog:
 
 
 def serve_requests(cfg, plain_cfg, params, dev, n_slots, cap, prompts, max_new, tol,
-                   experts=(), failures=None):
-    """The serving path: ``prompts`` through a `ServeEngine` of ``cfg``
+                   experts=(), failures=None, extras=None, bf16_ties=False):
+    """The serving path: ``prompts`` (with ``extras[i]``, a request's frames
+    or patches, when given) through a `ServeEngine` of ``cfg``
     (the kernel path) to `drain`, with the kernels' launch counters set to 0
     just before and read just after; then the same requests, teacher-forced
     with the kernel path's tokens, through an engine of ``plain_cfg`` (the
@@ -386,6 +421,12 @@ def serve_requests(cfg, plain_cfg, params, dev, n_slots, cap, prompts, max_new, 
     by rounding, so the checks hold on the rows where no choice differs.
     In the ``"forced"`` run the plain path takes the kernel path's choices
     (its own are still counted), and the checks hold on every row.
+    With ``bf16_ties`` a first token that differs is a tie, and no breach,
+    when the plain path's logits of its own argmax and of the kernel path's
+    token lie closer together than the two paths' max abs difference on that
+    row (itself held to ``tol``): in a bf16 model the logits are bf16 values
+    and the paths round differently, so the order of such a pair is
+    rounding's, not the attention's.
     ``failures`` (a list) collects the breaches instead of failing at once.
     Returns a dict of what was seen, ``by_run`` holding each plain run's."""
     import torch
@@ -442,8 +483,9 @@ def serve_requests(cfg, plain_cfg, params, dev, n_slots, cap, prompts, max_new, 
                 held = run != "own" or n_diff == 0
                 top = int(torch.argmax(row))
                 if top != tok and pos == 0:
+                    gap = float(row[top] - row[tok])
                     stats["first_token_diffs"].append(
-                        (r.rid, round(float(row[top] - row[tok]), 4), n_diff, round(d, 4), held))
+                        (r.rid, round(gap, 4), n_diff, round(d, 4), held, bf16_ties and gap <= d))
                 if held:
                     key = "prefill_max_abs" if pos == 0 else "decode_max_abs"
                     stats[key] = max(stats[key], d)
@@ -454,7 +496,9 @@ def serve_requests(cfg, plain_cfg, params, dev, n_slots, cap, prompts, max_new, 
             return out
 
     def requests():
-        return [Request(rid=i, tokens=t, max_new_tokens=max_new) for i, t in enumerate(prompts)]
+        return [Request(rid=i, tokens=t, max_new_tokens=max_new,
+                        extras=None if extras is None else extras[i])
+                for i, t in enumerate(prompts)]
 
     obs = Observability()
     keng = Recording(get_model(cfg), params, n_slots=n_slots, cap=cap, device=dev, obs=obs)
@@ -496,11 +540,11 @@ def serve_requests(cfg, plain_cfg, params, dev, n_slots, cap, prompts, max_new, 
             fail(f"{what}: the plain path launched an attention kernel")
         if psteps != steps or [r.generated for r in preqs] != [r.generated for r in kreqs]:
             fail(f"{what}: the teacher-forced plain engine took another schedule")
-        first = [f for f in stats["first_token_diffs"] if f[4]]
+        first = [f for f in stats["first_token_diffs"] if f[4] and not f[5]]
         if first:
             breach(f"{what}: {len(first)} first tokens differ between the kernel and plain "
-                   f"paths (rid, plain-logit gap, differing expert pairs, max abs, held): "
-                   f"{first}")
+                   f"paths (rid, plain-logit gap, differing expert pairs, max abs, held, "
+                   f"bf16 tie): {first}")
         worst = max(stats["prefill_max_abs"], stats["decode_max_abs"])
         if not worst <= tol:
             breach(f"{what}: logits differ by {worst} between the kernel and plain paths "
@@ -1087,6 +1131,41 @@ def main(rehearse: bool) -> None:
         decode_cases = [(S_att, dec_lens, 16, 8), (256, [17, 19, 21, 23], 16, 8),
                         (S_att, dec_lens, 16, 16), (half, [1, half, 513, half - 24], 40, 8),
                         (cap_j, [4, min(257, cap_j), cap_j - 256, cap_j], 64, 8)]
+        # phase 3j's layouts, head dim 64: whisper-tiny's encoder (non-causal,
+        # 6 / 6 heads over its 1500 frames) and cross-attention (non-causal,
+        # Sq 1, 77 and 448 against the 1500 encoder rows), internvl2-1b's G =
+        # 7 (14 / 2 heads, causal, 256 patches + 1 and + 1024 tokens); decode
+        # at G = 7 (8 slots of cap S_att, lengths 1 .. S_att) and whisper's
+        # cross decode (8 slots against the full static cache of 1500 rows)
+        F_au = 1500
+        flash64 = [(F_au, F_au, 6, 6, False)] + [(sq, F_au, 6, 6, False) for sq in (1, 77, 448)] \
+            + [(S, S, 14, 2, True) for S in (257, half + 256)]
+        decode64 = [(S_att, dec_lens, 14, 2), (F_au, [F_au] * 8, 6, 6)]
+        for dt in (torch.bfloat16, torch.float32):
+            tol = ATTN_TOL[str(dt).split(".")[1]]
+            for Sq, Sk, hq, hkv, causal in flash64:
+                q = attn_rand((1, Sq, hq, 64), dt)
+                k, v = attn_rand((1, Sk, hkv, 64), dt), attn_rand((1, Sk, hkv, 64), dt)
+                got = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                          causal=causal)
+                want = kref.mha_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                    sm_scale=1 / 8, causal=causal)
+                sync()
+                what = f"{Sq} x {Sk}, D 64, {'causal' if causal else 'non-causal'}"
+                att_err["flash_attention", dt, hq, hkv, what] = attn_close(
+                    got, want, tol, f"flash {dt} {hq}/{hkv} heads {what}")
+            for cap_, lens, hq, hkv in decode64:
+                nb = len(lens)
+                qd = attn_rand((nb, hq, 64), dt)
+                kc, vc = attn_rand((nb, cap_, hkv, 64), dt), attn_rand((nb, cap_, hkv, 64), dt)
+                lens_d = torch.tensor(lens, dtype=torch.int32, device=dev)
+                got = ops.decode_attention(qd, kc.transpose(1, 2), vc.transpose(1, 2), lens_d)
+                want = kref.decode_ref(qd.reshape(nb, hkv, hq // hkv, 64), kc.transpose(1, 2),
+                                       vc.transpose(1, 2), lens_d.reshape(nb, 1),
+                                       sm_scale=1 / 8).reshape(nb, hq, 64)
+                sync()
+                att_err["decode_attention", dt, hq, hkv, f"{cap_} (D 64)", nb] = attn_close(
+                    got, want, tol, f"decode {dt} {hq}/{hkv} heads {nb} slots cap {cap_} D 64")
         for dt in (torch.bfloat16, torch.float32):
             tol = ATTN_TOL[str(dt).split(".")[1]]
             for S, hq, hkv in flash_cases:
@@ -2102,7 +2181,7 @@ def main(rehearse: bool) -> None:
                 f"{where} ({st['rows']}) max abs difference prefill "
                 f"{st['prefill_max_abs']:.4g}, decode {st['decode_max_abs']:.4g} (tolerance "
                 f"{tol}); over every row {st['all_rows_max_abs']:.4g}; first tokens that "
-                f"differ (rid, plain-logit gap, differing pairs, max abs, held): "
+                f"differ (rid, plain-logit gap, differing pairs, max abs, held, bf16 tie): "
                 f"{st['first_token_diffs']}; {len(gaps)} argmax differences held, largest "
                 f"plain-logit gap {max(gaps, default=0.0):.4g}")
         return sv_
@@ -2332,6 +2411,96 @@ def main(rehearse: bool) -> None:
     if failures_3i:
         fail("phase 3i: " + " | ".join(failures_3i))
 
+    # ----------------------------------------------------------------- 3j
+    # the encoder-decoder and vision tokens (the reduced configs in the
+    # rehearsal): (a) whisper-tiny at full width and depth, bf16, 16
+    # requests, each with its own seeded frames [1500, 384], through 8 slots
+    # of cap 448 (its published text context, <= the 1500 frames); (b) the
+    # same in f32; (c) internvl2-1b at full width and depth, bf16, 16
+    # requests, each with its own seeded patches [256, 896], through 8 slots
+    # of cap 2048; (d) the same in f32.  Each run is teacher-forced through
+    # the plain attention (`serve_requests`); in f32 every greedy token must
+    # be equal on the two paths.
+    t_3j = time.perf_counter()
+    failures_3j = []
+
+    def mm_serve(tag, cfg_, params_, seed, lens, cap, max_new, tol, greedy_equal):
+        """16 seeded prompts of ``lens`` (low, high) tokens, each with its
+        own seeded frames or patches, through `serve_requests` (8 slots of
+        ``cap``), and the launch gates: per admitted request one flash
+        launch per encoder layer and two per decoder layer (self and cross)
+        for the encoder-decoder, one per layer for a decoder; per decode step
+        two per decoder layer (self and cross) or one per layer.  In bf16 a
+        first token may differ only at a tie closer than the two paths'
+        difference on its row (`serve_requests`' ``bf16_ties``).  With ``greedy_equal`` the plain
+        path's argmax must be the kernel path's token on every row, so the
+        two paths' greedy tokens are equal."""
+        rng_ = np.random.default_rng(seed)
+        plens = rng_.integers(lens[0], lens[1] + 1, 16)
+        prompts_ = [rng_.integers(0, cfg_.vocab_size, int(n)).astype(np.int32) for n in plens]
+        name, rows = (("frames", cfg_.n_audio_frames) if cfg_.is_encoder_decoder
+                      else ("patches", cfg_.n_vision_tokens))
+        extras_ = [{name: rng_.standard_normal((rows, cfg_.d_model), dtype=np.float32)}
+                   for _ in plens]
+        sv_ = serve_requests(cfg_, dataclasses.replace(cfg_, attn_impl="chunked"), params_, dev,
+                             n_slots=8, cap=cap, prompts=prompts_, max_new=max_new, tol=tol,
+                             failures=failures_3j, extras=extras_,
+                             bf16_ties=cfg_.dtype == "bfloat16")
+        sl = sv_["launches"]
+        if cfg_.is_encoder_decoder:
+            per_req, per_step = cfg_.n_encoder_layers + 2 * cfg_.n_layers, 2 * cfg_.n_layers
+        else:
+            per_req = per_step = cfg_.n_layers
+        want_ = {"flash_attention": per_req * sv_["admitted"],
+                 "decode_attention": per_step * sv_["steps"]}
+        if not rehearse:
+            for kname, n in want_.items():
+                if sl[kname] != n:
+                    fail(f"phase 3j ({tag}): {kname}: {sl[kname]} launches, expected {n} "
+                         f"({sv_['admitted']} requests, {sv_['steps']} decode steps)")
+            others = {k: v for k, v in sl.items() if k not in want_ and v}
+            if others:
+                fail(f"phase 3j ({tag}): the serving path launched routing kernels: {others}")
+        if greedy_equal and sv_["argmax_diffs"]:
+            failures_3j.append(f"phase 3j ({tag}): the plain path's greedy token differs at "
+                               f"(rid, position, plain-logit gap) {sv_['argmax_diffs'][:5]}")
+        gaps = [g for _, _, g in sv_["argmax_diffs"]]
+        mem = (f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
+               if dev.type == "cuda" else "")
+        log(f"phase 3j ({tag}): served 16 requests (prompts {sorted(plens.tolist())} tokens, "
+            f"{name} [{rows}, {cfg_.d_model}] each, {max_new} new) through 8 slots of cap {cap} "
+            f"in {sv_['steps']} decode steps, {sv_['wall_s']:.3f} s wall "
+            f"({1e3 * sv_['wall_s'] / sv_['steps']:.1f} ms an engine step, its prefills "
+            f"included), {sv_['tokens']} tokens ({sv_['tokens'] / sv_['wall_s']:.1f} tokens/s, "
+            f"host clock); launches {sl} ({per_req} flash a request, {per_step} decode a "
+            f"step){mem} [{smi_tag}]")
+        log(f"phase 3j ({tag}): teacher-forced plain path (attn_impl='chunked', "
+            f"{sv_['by_run'][None]['wall_s']:.3f} s) over {sv_['rows']} rows of logits: max abs "
+            f"difference prefill {sv_['prefill_max_abs']:.4g}, decode {sv_['decode_max_abs']:.4g} "
+            f"(tolerance {tol}); first tokens that differ (rid, plain-logit gap, -, max abs, "
+            f"held, bf16 tie) {sv_['first_token_diffs']}; "
+            f"{len(gaps)} argmax differences, largest plain-logit gap "
+            f"{max(gaps, default=0.0):.4g}")
+        return sv_
+
+    # whisper: prompts up to 400 tokens + 32 new inside cap 448; the
+    # rehearsal's reduced whisper has 24 frames, so cap 24 and short prompts
+    wh_cap, wh_lens, mm_new = (24, (1, 12), 8) if rehearse else (448, (1, 400), 32)
+    vl_cap, vl_lens = (64, (4, 40)) if rehearse else (2048, (16, 1536))
+    for tag, arch, dtype, cap_, lens_, tol_ in (
+            ("a", "whisper-tiny", "bfloat16", wh_cap, wh_lens, SERVE_TOL),
+            ("b", "whisper-tiny", "float32", wh_cap, wh_lens, F32_SERVE_TOL),
+            ("c", "internvl2-1b", "bfloat16", vl_cap, vl_lens, SERVE_TOL),
+            ("d", "internvl2-1b", "float32", vl_cap, vl_lens, F32_SERVE_TOL)):
+        mm_cfg, mm_params = draw_model(arch, f"3j ({tag})", dtype)
+        mm_serve(tag, mm_cfg, mm_params, 13, lens_, cap_, mm_new, tol_,
+                 greedy_equal=dtype == "float32")
+        del mm_params
+        free_card()
+    log(f"phase 3j: {time.perf_counter() - t_3j:.1f} s in all")
+    if failures_3j:
+        fail("phase 3j: " + " | ".join(failures_3j))
+
     # ------------------------------------------------------------------ 4
     def timed(fn, n=reps):
         """Median ms of ``n`` calls after two warm-up calls (CUDA events on the card)."""
@@ -2528,6 +2697,72 @@ def main(rehearse: bool) -> None:
                 log(f"phase 4: {what}, bf16 (G = {hq // hkv}): kernel {timed(kern):.4f} ms window, "
                     f"{alone} alone; plain {timed(plain):.4f} ms; SDPA {timed(lib):.4f} ms "
                     f"window, {lib_alone} alone; bound {bnd[0]:.5f} ms by {bnd[1]} [{smi_tag}]")
+        # phase 3j's five new layouts, head dim 64, bf16, the same way:
+        # whisper-tiny's encoder self-attention (6 / 6 heads over 1500
+        # frames, non-causal) and cross-attention (448 queries against the
+        # 1500 encoder rows, non-causal: operations 4 Hq Sq Sk D, nothing
+        # masked), internvl2-1b's G = 7 prefill (14 / 2 heads, 256 patches +
+        # 1024 tokens, causal), its decode of 8 slots against [8, S_att, 2,
+        # 64] caches and whisper's cross decode of 8 slots against [8, 1500,
+        # 6, 64], every length full
+        F_au = 1500
+        s_vl = S_att // 2 + 256
+        q_e, k_e, v_e = (attn_rand((1, 6, F_au, 64), bf) for _ in range(3))
+        q_x = attn_rand((1, 6, 448, 64), bf)
+        q_7, k_7, v_7 = attn_rand((1, 14, s_vl, 64), bf), attn_rand((1, 2, s_vl, 64), bf), \
+            attn_rand((1, 2, s_vl, 64), bf)
+        q_d7, k_d7, v_d7 = attn_rand((8, 14, 64), bf), attn_rand((8, S_att, 2, 64), bf), \
+            attn_rand((8, S_att, 2, 64), bf)
+        q_dx, k_dx, v_dx = attn_rand((8, 6, 64), bf), attn_rand((8, F_au, 6, 64), bf), \
+            attn_rand((8, F_au, 6, 64), bf)
+        full_7 = torch.full((8,), S_att, dtype=torch.int32, device=dev)
+        full_x = torch.full((8,), F_au, dtype=torch.int32, device=dev)
+
+        def dec64(q_, k_, v_, lens_):
+            G_ = q_.shape[1] // k_.shape[2]
+            return (lambda: ops.decode_attention(q_, k_.transpose(1, 2), v_.transpose(1, 2), lens_),
+                    lambda: kref.decode_ref(q_.reshape(8, k_.shape[2], G_, 64), k_.transpose(1, 2),
+                                            v_.transpose(1, 2), lens_.reshape(8, 1),
+                                            sm_scale=1 / 8),
+                    lambda: sdpa(q_[:, :, None], k_.transpose(1, 2), v_.transpose(1, 2),
+                                 enable_gqa=True),
+                    bound(2 * (2 * k_.numel() + 2 * q_.numel()), 4 * q_.numel() * k_.shape[1],
+                          BF16_OPS_PER_S))
+
+        for what, (kern, plain, lib, bnd) in (
+                (f"flash_attention [1, 6, {F_au}, 64] x 6 kv heads, non-causal (whisper encoder)",
+                 (lambda: ops.flash_attention(q_e, k_e, v_e, causal=False),
+                  lambda: kref.mha_ref(q_e, k_e, v_e, sm_scale=1 / 8, causal=False),
+                  lambda: sdpa(q_e, k_e, v_e, is_causal=False),
+                  bound(2 * (2 * q_e.numel() + k_e.numel() + v_e.numel()),
+                        4 * 6 * F_au * F_au * 64, BF16_OPS_PER_S))),
+                (f"flash_attention [1, 6, 448, 64] x [1, 6, {F_au}, 64], non-causal (whisper "
+                 "cross)",
+                 (lambda: ops.flash_attention(q_x, k_e, v_e, causal=False),
+                  lambda: kref.mha_ref(q_x, k_e, v_e, sm_scale=1 / 8, causal=False),
+                  lambda: sdpa(q_x, k_e, v_e, is_causal=False),
+                  bound(2 * (2 * q_x.numel() + k_e.numel() + v_e.numel()),
+                        4 * 6 * 448 * F_au * 64, BF16_OPS_PER_S))),
+                (f"flash_attention [1, 14, {s_vl}, 64] x 2 kv heads, causal (internvl2, G = 7)",
+                 (lambda: ops.flash_attention(q_7, k_7, v_7),
+                  lambda: kref.mha_ref(q_7, k_7, v_7, sm_scale=1 / 8),
+                  lambda: sdpa(q_7, k_7, v_7, is_causal=True, enable_gqa=True),
+                  bound(2 * (2 * q_7.numel() + k_7.numel() + v_7.numel()),
+                        4 * 14 * s_vl * s_vl * 64 / 2, BF16_OPS_PER_S))),
+                (f"decode_attention 8 slots x 14 heads against [8, {S_att}, 2, 64] caches "
+                 "(internvl2, G = 7)", dec64(q_d7, k_d7, v_d7, full_7)),
+                (f"decode_attention 8 slots x 6 heads against [8, {F_au}, 6, 64] caches "
+                 "(whisper cross)", dec64(q_dx, k_dx, v_dx, full_x))):
+            alone = lib_alone = "not measured"
+            if dev.type == "cuda":
+                _, per = device_us(kern, 20)
+                _, per_lib = device_us(lib, 20)
+                alone = f"{sum(per.values()) / 1e3:.4f} ms" if per else alone
+                lib_alone = f"{sum(per_lib.values()) / 1e3:.4f} ms" if per_lib else lib_alone
+            log(f"phase 4: {what}, bf16: kernel {timed(kern):.4f} ms window, {alone} alone; "
+                f"plain {timed(plain):.4f} ms; SDPA {timed(lib):.4f} ms window, {lib_alone} "
+                f"alone; bound {bnd[0]:.5f} ms by {bnd[1]} [{smi_tag}]")
+        del q_e, k_e, v_e, q_x, q_7, k_7, v_7, q_d7, k_d7, v_d7, q_dx, k_dx, v_dx
         # the kernels' own device time per call (the split and merge
         # kernels of decode together), apart from the wrapper's host work
         # that the CUDA-event window includes when the host is the slower
@@ -2936,6 +3171,57 @@ def main(rehearse: bool) -> None:
                 f"{'not measured' if dbusy is None else f'{dbusy:.3f} ms'} device, {dwall:.3f} "
                 f"ms wall; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
                 f"GiB [{smi_tag}]")
+        del p_params, p_cache
+        free_card()
+
+    # phase 3j's models at their calls (the weights drawn again from the same
+    # seed): whisper-tiny one prefill of a 400-token prompt against 1500
+    # frames (the encoder included) and one decode step of 8 slots at
+    # cache_len 400; internvl2-1b one prefill of 256 patches + 1024 tokens
+    # and one decode step of 8 slots at cache_len 1280.  Each decode step
+    # against its byte bound: the weights the step reads (the decoder's:
+    # not whisper's encoder nor internvl2's vision_proj; the embedding's rows
+    # of the step's tokens only), the self-attention caches' rows read, the
+    # cross-attention caches read whole, the logits written.
+    for arch, n_pre, pos in (("whisper-tiny", 400, 400), ("internvl2-1b", 1024, 1280)):
+        p_cfg, p_params = draw_model(arch, "4")
+        pm = get_model(p_cfg)
+        prng = np.random.default_rng(8)
+        batch_ = {"tokens": torch.as_tensor(prng.integers(0, p_cfg.vocab_size, (1, n_pre)),
+                                            device=dev)}
+        if p_cfg.is_encoder_decoder:
+            cap_p, skip = 448, ("enc_blocks", "enc_norm")
+            batch_["frames"] = torch.as_tensor(prng.standard_normal(
+                (1, p_cfg.n_audio_frames, p_cfg.d_model), dtype=np.float32), device=dev)
+        else:
+            cap_p, skip = 2048, ("vision_proj",)
+            batch_["patches"] = torch.as_tensor(prng.standard_normal(
+                (1, p_cfg.n_vision_tokens, p_cfg.d_model), dtype=np.float32), device=dev)
+        p_cache = pm.init_cache(8, cap_p, device=dev)
+        tok8 = torch.as_tensor(np.arange(8)[:, None], device=dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+            breakdown(f"prefill of {n_pre} tokens ({p_cfg.name}, {p_cfg.dtype}, "
+                      f"{' + '.join(f'{k} {v.shape[1]}' for k, v in batch_.items())})",
+                      lambda: pm.prefill(p_params, batch_))
+            dwall, dbusy, dparts = breakdown(
+                f"decode step of 8 slots at cache_len {pos} ({p_cfg.name})",
+                lambda: pm.decode_step(p_params, p_cache, tok8, pos))
+            isz = p_cfg.torch_dtype.itemsize
+            w_b = sum(t.numel() * t.element_size() for k, v in p_params.items() if k not in skip
+                      for t in _leaves(v)) - (p_cfg.padded_vocab - 8) * p_cfg.d_model * isz
+            row = 2 * p_cfg.n_kv_heads * p_cfg.resolved_head_dim * isz    # one K and V row
+            kv_b = p_cfg.n_layers * 8 * (pos + 1) * row
+            if p_cfg.is_encoder_decoder:
+                kv_b += p_cfg.n_layers * 8 * p_cfg.n_audio_frames * row
+            dbound = (w_b + kv_b + 8 * p_cfg.padded_vocab * 4) / HBM_BYTES_PER_S * 1e3
+            att = dparts.get("attention kernels")
+            log(f"phase 4: {p_cfg.name} decode step of 8 slots: byte bound {dbound:.4f} ms "
+                f"({w_b / 1e9:.4f} GB of weights, {kv_b / 1e9:.4f} GB of K/V cache at 3.35 "
+                f"TB/s) against {'not measured' if dbusy is None else f'{dbusy:.3f} ms'} "
+                f"device ({'not measured' if att is None else f'{att:.3f} ms'} in the "
+                f"attention kernels), {dwall:.3f} ms wall; peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB [{smi_tag}]")
         del p_params, p_cache
         free_card()
 

@@ -9,9 +9,10 @@ objects hold), so this module imports nothing of the reference:
   ``dataclasses.asdict`` of the reference's, nested `QosParams` included;
 * `adapt_state_from_arrays` carries a SONAR-ADAPT learner state (weights,
   reward baseline, step count) onto a device;
-* `lm_params_from_arrays` turns an LM parameter tree (nested dicts of
-  numpy arrays, stacked ``groups`` with their leading layer axis) into the
-  port's tensors, bf16 included;
+* `lm_params_from_arrays` turns any model's parameter tree (nested dicts
+  of numpy arrays: an LM's stacked ``groups`` and a VLM's ``vision_proj``,
+  whisper's ``enc_blocks`` / ``dec_blocks``, each with their leading layer
+  axis) into the port's tensors, bf16 included;
 * `model_config_from_dict` rebuilds a `ModelConfig` from
   ``dataclasses.asdict`` of the reference's.
 
@@ -101,9 +102,11 @@ def _tensor(x, device) -> torch.Tensor:
 
 
 def lm_params_from_arrays(tree, device):
-    """The port's LM parameters on ``device`` from the reference's tree
-    (nested dicts of arrays: ``embed``, ``final_norm``, ``head`` and the
-    stacked ``groups``), leaf for leaf, dtypes kept."""
+    """The port's parameters on ``device`` from the reference's tree of any
+    model family (nested dicts of arrays: an LM's ``embed``, ``final_norm``,
+    ``head``, ``vision_proj`` and stacked ``groups``; whisper's ``embed``,
+    ``enc_blocks``, ``enc_norm``, ``dec_blocks``, ``dec_norm`` and
+    ``head``), leaf for leaf, dtypes kept."""
     dev = torch.device(device)
     if isinstance(tree, Mapping):
         return {k: lm_params_from_arrays(v, dev) for k, v in tree.items()}

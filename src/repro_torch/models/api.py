@@ -1,22 +1,42 @@
-"""Uniform model API, twin of `repro.models.api`, for decoder-only configs.
+"""Uniform model API, twin of `repro.models.api`, over every family.
 
     model = get_model(cfg)
     params = model.init_params(seed=0, device=None)   # None: the CUDA card
     logits, cache = model.prefill(params, {"tokens": tokens})          # [B, 1, V]
     logits, cache = model.decode_step(params, cache, tokens, cache_len)
 
-An encoder-decoder config raises `NotImplementedError`.
+An encoder-decoder config (``is_encoder_decoder``) runs
+`repro_torch.models.whisper` and its prefill batch adds ``frames`` [B, F,
+d]; a VLM config's adds ``patches`` [B, V, d]; every other config runs
+`repro_torch.models.lm`.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, NamedTuple
 
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models import lm
+from repro_torch.models import lm, whisper
 from repro_torch.models.config import ModelConfig
 from repro_torch.nn import core as nn
+
+
+class _Family(NamedTuple):
+    init: Callable           # (ctx, cfg) -> params
+    forward: Callable        # (params, cfg, batch, mode, cache, cache_len) -> (logits, cache)
+    init_cache: Callable     # (cfg, batch, cap, device) -> cache
+    cache_axes: Callable     # (cfg) -> axes tree
+
+
+_LM = _Family(lm.lm_init, lm.lm_forward, lm.lm_init_cache, lm.lm_cache_axes)
+_WHISPER = _Family(whisper.whisper_init, whisper.whisper_forward, whisper.whisper_init_cache,
+                   whisper.whisper_cache_axes)
+
+
+def _family(cfg: ModelConfig) -> _Family:
+    return _WHISPER if cfg.is_encoder_decoder else _LM
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,26 +48,26 @@ class Model:
         seeded with ``seed``, in ``cfg.dtype``."""
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(int(seed))
-        return lm.lm_init(nn.InitCtx(gen=gen, dtype=self.cfg.torch_dtype), self.cfg)
+        return _family(self.cfg).init(nn.InitCtx(gen=gen, dtype=self.cfg.torch_dtype), self.cfg)
 
     @torch.no_grad()
     def prefill(self, params, batch):
-        """(last-position logits [B, 1, V], cache [n_layers, B, S, Hkv, hd])."""
-        return lm.lm_forward(params, self.cfg, batch, "prefill")
+        """(last-position logits [B, 1, V], the prompt's cache)."""
+        return _family(self.cfg).forward(params, self.cfg, batch, "prefill")
 
     @torch.no_grad()
     def decode_step(self, params, cache, tokens, cache_len):
         """(logits [B, 1, V], cache): ``tokens`` [B, 1] at position
         ``cache_len`` for every row; the cache is updated in place."""
-        return lm.lm_forward(params, self.cfg, {"tokens": tokens}, "decode", cache, cache_len)
+        return _family(self.cfg).forward(params, self.cfg, {"tokens": tokens}, "decode", cache,
+                                         cache_len)
 
     def init_cache(self, batch: int, cap: int, device=None) -> dict:
-        return lm.lm_init_cache(self.cfg, batch, cap, resolve_device(device))
+        return _family(self.cfg).init_cache(self.cfg, batch, cap, resolve_device(device))
 
     def cache_axes(self) -> dict:
-        return lm.lm_cache_axes(self.cfg)
+        return _family(self.cfg).cache_axes(self.cfg)
 
 
 def get_model(cfg: ModelConfig) -> Model:
-    lm.check_supported(cfg)
     return Model(cfg=cfg)

@@ -1,5 +1,7 @@
 """GQA attention layer, twin of `repro.models.attention`: init, prefill
-forward and single-token decode.
+forward and single-token decode, for self-attention (causal, or not as in
+the whisper encoder) and for cross-attention to a memory (whisper's
+decoder against the encoder's output).
 
 Three interchangeable prefill paths (``cfg.attn_impl``):
   naive   — full [Sq, Sk] scores, grouped products (no KV expansion)
@@ -9,10 +11,12 @@ Three interchangeable prefill paths (``cfg.attn_impl``):
             on the card (its plain version, `mha_ref`, for CPU tensors)
 
 Decode appends the new token's K/V to the cache **in place** (the
-reference returns a new cache) and attends over ``cache_len + 1`` rows:
-under ``"pallas"`` through `kernels.ops.decode_attention` (the CUDA flash
-decode kernel, reading the cache through its strides), otherwise through
-grouped products, as the reference.
+reference returns a new cache) and attends over ``cache_len + 1`` rows;
+cross-attention decode writes nothing and attends over ``cache_len`` rows
+of its static cache.  Under ``"pallas"`` both go through
+`kernels.ops.decode_attention` (the CUDA flash decode kernel, reading the
+cache through its strides), otherwise through grouped products, as the
+reference.
 
 Where P is rounded: the naive/chunked paths and the grouped decode round
 the softmax P to the model dtype before the PV product, as the reference
@@ -22,6 +26,7 @@ in f32.  In f32 the two agree to rounding; in bf16 within bf16 tolerance.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -59,9 +64,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 # Params
 # ---------------------------------------------------------------------------
 
-def attn_init(ctx: nn.InitCtx, cfg: ModelConfig, n_layers: int) -> dict:
-    """wq/wk/wv/wo (and bq/bk/bv under ``qkv_bias``) of ``n_layers`` layers,
-    stacked on a leading axis."""
+def attn_init(ctx: nn.InitCtx, cfg: ModelConfig, n_layers: int, cross: bool = False) -> dict:
+    """wq/wk/wv/wo (and bq/bk/bv under ``qkv_bias``, unless ``cross``) of
+    ``n_layers`` layers, stacked on a leading axis."""
     d, hd, n = cfg.d_model, cfg.resolved_head_dim, n_layers
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
     p = {
@@ -70,7 +75,7 @@ def attn_init(ctx: nn.InitCtx, cfg: ModelConfig, n_layers: int) -> dict:
         "wv": nn.fan_in_normal(ctx, (n, d, nkv * hd), fan_in=d),
         "wo": nn.fan_in_normal(ctx, (n, nq * hd, d), fan_in=nq * hd),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = nn.zeros(ctx, (n, nq * hd))
         p["bk"] = nn.zeros(ctx, (n, nkv * hd))
         p["bv"] = nn.zeros(ctx, (n, nkv * hd))
@@ -134,23 +139,29 @@ def attn_apply(
     cfg: ModelConfig,
     x: torch.Tensor,                   # [B, S, d]
     positions: torch.Tensor,           # [S] or [B, S]
+    causal: bool = True,
+    kv: Optional[torch.Tensor] = None, # cross-attention memory [B, Sk, d]
 ):
-    """Causal full-sequence forward (prefill).  Returns (y, cache) where
-    cache = (k, v) laid out [B, S, Hkv, hd]."""
+    """Full-sequence forward (prefill).  Self-attention (``kv`` None) puts
+    RoPE on q and k; cross-attention takes k and v from ``kv`` and no RoPE.
+    Returns (y, cache) where cache = (k, v) laid out [B, Sk, Hkv, hd]."""
     B, S, _ = x.shape
     hd, nq, nkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    src = x if kv is None else kv
+    Sk = src.shape[1]
     q = nn.dense(x, p["wq"], p.get("bq")).reshape(B, S, nq, hd)
-    k = nn.dense(x, p["wk"], p.get("bk")).reshape(B, S, nkv, hd)
-    v = nn.dense(x, p["wv"], p.get("bv")).reshape(B, S, nkv, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    k = nn.dense(src, p["wk"], p.get("bk")).reshape(B, Sk, nkv, hd)
+    v = nn.dense(src, p["wv"], p.get("bv")).reshape(B, Sk, nkv, hd)
+    if kv is None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
     if cfg.attn_impl == "pallas":
-        o = _pallas_attn(q, k, v, causal=True)
+        o = _pallas_attn(q, k, v, causal)
     elif cfg.attn_impl == "chunked" and S > cfg.attn_chunk:
-        o = _chunked_attn(q, k, v, True, cfg.attn_chunk)
+        o = _chunked_attn(q, k, v, causal, cfg.attn_chunk)
     else:
-        o = _naive_attn(q, k, v, causal=True)
+        o = _naive_attn(q, k, v, causal)
 
     y = nn.dense(o.reshape(B, S, nq * hd), p["wo"])
     return y, (k, v)
@@ -162,27 +173,34 @@ def attn_decode(
     x: torch.Tensor,                   # [B, 1, d]: one new token
     cache: tuple,                      # (k, v) [B, S_cap, Hkv, hd], updated in place
     cache_len: int,                    # valid entries, the same for every row
+    cross: bool = False,
 ):
-    """Single-token decode: writes (k, v) at ``cache_len`` in place (RoPE at
-    position ``cache_len``) and attends over ``cache_len + 1`` entries.
-    Returns (y [B, 1, d], cache)."""
+    """Single-token decode.  Self-attention writes (k, v) at ``cache_len``
+    in place (RoPE at position ``cache_len``) and attends over
+    ``cache_len + 1`` entries; cross-attention (``cross``) writes nothing,
+    puts no RoPE on q and attends over ``cache_len`` entries of its static
+    cache.  Returns (y [B, 1, d], cache)."""
     B = x.shape[0]
     hd, nq, nkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     kc, vc = cache
     S_cap = kc.shape[1]
     cache_len = int(cache_len)
-    if not 0 <= cache_len < S_cap:
-        raise ValueError(f"attn_decode: cache_len {cache_len} outside [0, {S_cap})")
+    if not (0 < cache_len <= S_cap if cross else 0 <= cache_len < S_cap):
+        raise ValueError(f"attn_decode: cache_len {cache_len} outside the cache of {S_cap} "
+                         f"({'cross' if cross else 'self'}-attention)")
 
     q = nn.dense(x, p["wq"], p.get("bq")).reshape(B, 1, nq, hd)
-    k_new = nn.dense(x, p["wk"], p.get("bk")).reshape(B, 1, nkv, hd)
-    v_new = nn.dense(x, p["wv"], p.get("bv")).reshape(B, 1, nkv, hd)
-    pos = torch.full((B, 1), cache_len, dtype=torch.int32, device=x.device)
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k_new = apply_rope(k_new, pos, cfg.rope_theta)
-    kc[:, cache_len] = k_new[:, 0].to(kc.dtype)
-    vc[:, cache_len] = v_new[:, 0].to(vc.dtype)
-    valid = cache_len + 1
+    if cross:
+        valid = cache_len
+    else:
+        k_new = nn.dense(x, p["wk"], p.get("bk")).reshape(B, 1, nkv, hd)
+        v_new = nn.dense(x, p["wv"], p.get("bv")).reshape(B, 1, nkv, hd)
+        pos = torch.full((B, 1), cache_len, dtype=torch.int32, device=x.device)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k_new = apply_rope(k_new, pos, cfg.rope_theta)
+        kc[:, cache_len] = k_new[:, 0].to(kc.dtype)
+        vc[:, cache_len] = v_new[:, 0].to(vc.dtype)
+        valid = cache_len + 1
 
     if cfg.attn_impl == "pallas":
         lengths = torch.full((B,), valid, dtype=torch.int32, device=x.device)

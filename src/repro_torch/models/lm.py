@@ -20,8 +20,11 @@ hd] or a recurrent block's state dict (`mamba.init_mamba_state`,
 [n_layers] axis in the groups.  Decode updates every entry in place and
 returns the same tree.
 
-Vision tokens and the encoder-decoder raise `NotImplementedError`
-(`ROADMAP.md` queue 1, item 11 (c)).
+A VLM config (``n_vision_tokens``) adds ``vision_proj`` [d, d]: its
+prefill takes ``patches`` [B, V, d] (the stubbed vision frontend's
+output), cast to the model dtype, projected and put before the token
+embeddings, so the cache holds V + S positions; decode takes tokens only.
+The encoder-decoder is `repro_torch.models.whisper`.
 """
 from __future__ import annotations
 
@@ -35,21 +38,6 @@ from repro_torch.models import mlp
 from repro_torch.models import xlstm as xl
 from repro_torch.models.config import ModelConfig
 from repro_torch.nn import core as nn
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise `NotImplementedError` for what the port does not serve yet:
-    the encoder-decoder and vision tokens."""
-    why = None
-    if cfg.is_encoder_decoder:
-        why = "the encoder-decoder"
-    elif cfg.n_vision_tokens:
-        why = "vision tokens"
-    if why is not None:
-        raise NotImplementedError(
-            f"repro_torch: {cfg.name} needs {why}, which is not ported yet "
-            "(ROADMAP.md queue 1, item 11)"
-        )
 
 
 def _n_groups(cfg: ModelConfig) -> int:
@@ -131,6 +119,15 @@ def block_init(ctx: nn.InitCtx, cfg: ModelConfig, layer_idx: int, n_layers: int)
     return p
 
 
+def _add_norm(x: torch.Tensor, y: torch.Tensor, scale: torch.Tensor, eps: float):
+    """(x + y, rms_norm(x + y)).  The norm reads the residual sum before it
+    is rounded to the model dtype, as the reference's compiled block does
+    (XLA keeps the bf16 add in f32 where it feeds the norm's f32 convert);
+    the carried residual is rounded.  In f32 the two are the same."""
+    h = nn.rms_norm(x.to(torch.float32) + y.to(torch.float32), scale, eps).to(x.dtype)
+    return x + y, h
+
+
 def block_apply(
     p: dict,
     cfg: ModelConfig,
@@ -163,13 +160,7 @@ def block_apply(
                 y, new_cache = mixer.apply(p[kind], cfg, h, return_state=True)
     if not _has_ffn(kind):
         return x + y, new_cache
-    # The second norm reads the residual sum before it is rounded to the
-    # model dtype, as the reference's compiled block does (XLA keeps the
-    # bf16 add in f32 where it feeds the norm's f32 convert); the carried
-    # residual is rounded.  In f32 the two are the same.
-    h2 = nn.rms_norm(x.to(torch.float32) + y.to(torch.float32), p["norm2"],
-                     cfg.norm_eps).to(x.dtype)
-    x = x + y
+    x, h2 = _add_norm(x, y, p["norm2"], cfg.norm_eps)
     return x + mlp.ffn_apply(p["ffn"], cfg, h2), new_cache
 
 
@@ -178,7 +169,6 @@ def block_apply(
 # ---------------------------------------------------------------------------
 
 def lm_init(ctx: nn.InitCtx, cfg: ModelConfig) -> dict:
-    check_supported(cfg)
     d = cfg.d_model
     p: dict = {
         "embed": nn.normal(ctx, (cfg.padded_vocab, d)),
@@ -186,6 +176,8 @@ def lm_init(ctx: nn.InitCtx, cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         p["head"] = nn.fan_in_normal(ctx, (d, cfg.padded_vocab))
+    if cfg.n_vision_tokens:
+        p["vision_proj"] = nn.fan_in_normal(ctx, (d, d))
     for i in range(cfg.first_k_dense):
         p[f"prelude_{i}"] = _unstack(block_init(ctx, cfg, i, 1), 1)[0]
     nG = _n_groups(cfg)
@@ -194,6 +186,17 @@ def lm_init(ctx: nn.InitCtx, cfg: ModelConfig) -> dict:
         for j in range(len(cfg.block_pattern))
     }
     return p
+
+
+def _embed_tokens(p: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Token embeddings [B, S, d]; a VLM's projected ``patches`` [B, V, d]
+    (cast to the model dtype first, as the reference) go before them."""
+    embed = p["embed"]
+    x = embed[torch.as_tensor(batch["tokens"], device=embed.device).long()]
+    if cfg.n_vision_tokens:
+        patches = torch.as_tensor(batch["patches"], device=embed.device).to(x.dtype)
+        x = torch.cat([nn.dense(patches, p["vision_proj"]), x], dim=1)
+    return x
 
 
 def lm_forward(
@@ -207,17 +210,17 @@ def lm_forward(
     """Returns (logits, new_cache): the last position's logits in
     ``prefill`` (with the prompt's cache: an attention layer's k/v [B, S,
     Hkv, hd], a recurrent block's state after the prompt, each with a
-    leading [n_layers] axis in the groups), the new token's in ``decode``
-    (the cache updated in place: K/V at ``cache_len``, the states whole).
-    Training, the reference's third mode, is not ported yet."""
+    leading [n_layers] axis in the groups; S counts a VLM's patches), the
+    new token's in ``decode`` (the cache updated in place: K/V at
+    ``cache_len``, the states whole).  Training, the reference's third
+    mode, is not ported yet."""
     if mode not in ("prefill", "decode"):
         raise ValueError(f"lm_forward: unknown mode {mode!r}")
-    if set(batch) - {"tokens"}:
-        raise NotImplementedError(f"repro_torch: batch inputs {sorted(set(batch) - {'tokens'})} "
-                                  "(vision / audio) are not ported yet")
     embed = p["embed"]
-    tokens = torch.as_tensor(batch["tokens"], device=embed.device).long()
-    x = embed[tokens]                                      # [B, S, d]
+    if mode == "decode":
+        x = embed[torch.as_tensor(batch["tokens"], device=embed.device).long()]   # [B, 1, d]
+    else:
+        x = _embed_tokens(p, cfg, batch)                   # [B, V + S, d]
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     kinds = list(cfg.block_pattern)
     prelude_kv = {}

@@ -7,11 +7,25 @@ with zeros and written into a free slot whole, so a reused slot keeps
 nothing of its previous request; all active slots then decode one token per
 engine step, and finished requests free their slots.
 
+A request of an encoder-decoder (whisper) brings its audio frames and a
+VLM's request its patches as ``extras`` (``{"frames": [F, d]}`` or
+``{"patches": [V, d]}``, numpy, cast to float32 here); they go into the
+prefill batch as [1, ...] tensors on the engine's device.
+
 Differences from the reference, by design:
   * the cache is updated in place (`insert_slot`, the decode step's K/V
     write) instead of being returned anew;
-  * a prompt of ``cap`` tokens or more is refused at `submit` (the
-    reference would decode at a clamped position);
+  * a prompt whose prefill positions (a VLM's V patches plus its tokens)
+    reach ``cap`` is refused at `submit` (the reference would decode at a
+    clamped position);
+  * a VLM slot's length after admission is its prefill's positions, V +
+    len(tokens); the reference counts the tokens only, so its decode writes
+    and attends V positions too early (`ROADMAP.md` queue 3);
+  * an encoder-decoder engine with ``cap`` above ``n_audio_frames`` is
+    refused: the reference pads the cross-attention cache (also a
+    'cache_seq' axis) to ``cap`` and then fails to insert it into the
+    batched cache of ``n_audio_frames`` rows;
+  * a missing, unexpected or misshapen extra raises `ValueError`;
   * the engine runs on ``device`` (None: the CUDA card) and refuses
     parameters that lie elsewhere.
 
@@ -80,7 +94,7 @@ class Request:
     rid: int
     tokens: np.ndarray             # prompt [S]
     max_new_tokens: int = 16
-    extras: Optional[dict] = None  # frames / patches (audio / vlm): not ported
+    extras: Optional[dict] = None  # frames [F, d] / patches [V, d] for audio / vlm
     # filled by the engine:
     generated: list = dataclasses.field(default_factory=list)
     done: bool = False
@@ -117,6 +131,18 @@ class ServeEngine:
         if bad:
             raise ValueError(f"ServeEngine: parameters on {sorted(map(str, bad))}, "
                              f"engine on {self.device}")
+        cfg = model.cfg
+        if cfg.is_encoder_decoder and cap > cfg.n_audio_frames:
+            raise ValueError(f"ServeEngine: cap {cap} above {cfg.name}'s n_audio_frames "
+                             f"{cfg.n_audio_frames}: the cross-attention cache holds "
+                             f"{cfg.n_audio_frames} rows and is not padded to cap")
+        # the extras a request of this model brings, with their shapes
+        self.extra_shapes = {}
+        if cfg.is_encoder_decoder:
+            self.extra_shapes["frames"] = (cfg.n_audio_frames, cfg.d_model)
+        if cfg.n_vision_tokens:
+            self.extra_shapes["patches"] = (cfg.n_vision_tokens, cfg.d_model)
+        self.n_prefix = cfg.n_vision_tokens      # prefill positions before the tokens
         self.model = model
         self.params = params
         self.n_slots = n_slots
@@ -142,14 +168,30 @@ class ServeEngine:
         """Requests not yet finished: queued plus in-slot."""
         return len(self.queue) + sum(1 for r in self.slot_req if r is not None)
 
+    def _extras(self, req: Request) -> dict:
+        """The request's extras as float32 arrays, checked against the
+        model's `extra_shapes`."""
+        got = dict(req.extras or {})
+        if set(got) != set(self.extra_shapes):
+            raise ValueError(f"ServeEngine: request {req.rid} brings extras {sorted(got)}; "
+                             f"{self.model.cfg.name} takes {sorted(self.extra_shapes)}")
+        out = {}
+        for name, shape in self.extra_shapes.items():
+            a = np.asarray(got[name], dtype=np.float32)
+            if a.shape != shape:
+                raise ValueError(f"ServeEngine: request {req.rid}: {name} of shape {a.shape}, "
+                                 f"expected {shape}")
+            out[name] = a
+        return out
+
     def submit(self, req: Request):
         """Enqueue one request; the next `step` with a free slot admits it."""
-        if req.extras:
-            raise NotImplementedError("repro_torch: request extras (audio / vision) "
-                                      "are not ported yet")
-        if not 1 <= len(req.tokens) < self.cap:
-            raise ValueError(f"ServeEngine: prompt of {len(req.tokens)} tokens; "
-                             f"1 to {self.cap - 1} fit a slot of {self.cap}")
+        self._extras(req)
+        n = self.n_prefix + len(req.tokens)
+        if not (len(req.tokens) >= 1 and n < self.cap):
+            raise ValueError(f"ServeEngine: prompt of {len(req.tokens)} tokens "
+                             f"({n} prefill positions); 1 to {self.cap - 1 - self.n_prefix} "
+                             f"tokens fit a slot of {self.cap}")
         self.queue.append(req)
         self._m_queue.set(len(self.queue))
 
@@ -162,18 +204,20 @@ class ServeEngine:
         for slot in range(self.n_slots):
             if self.slot_req[slot] is None and self.queue:
                 req = self.queue.popleft()
-                tokens = torch.as_tensor(np.asarray(req.tokens, np.int64)[None, :],
-                                         device=self.device)
+                batch = {k: torch.as_tensor(v[None], device=self.device)
+                         for k, v in self._extras(req).items()}
+                batch["tokens"] = torch.as_tensor(np.asarray(req.tokens, np.int64)[None, :],
+                                                  device=self.device)
                 with self.obs.tracer.span(
                     "prefill", cat="engine", args={"rid": req.rid}
                 ), torch.profiler.record_function("netmcp.prefill"):
-                    logits, cache1 = self.model.prefill(self.params, {"tokens": tokens})
+                    logits, cache1 = self.model.prefill(self.params, batch)
                 cache1 = pad_cache_to_capacity(cache1, self.axes, self.cap)
                 insert_slot(self.cache, self.axes, cache1, slot)
                 tok = self._next_tokens(logits[:, -1], [req])[0]
                 req.generated.append(tok)
                 self.slot_req[slot] = req
-                self.slot_len[slot] = len(req.tokens)
+                self.slot_len[slot] = self.n_prefix + len(req.tokens)
                 self.last_token[slot, 0] = tok
                 self._m_admitted.inc()
                 self._m_tokens.inc()

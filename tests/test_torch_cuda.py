@@ -1084,3 +1084,121 @@ def test_recurrent_scans_on_the_card_equal_their_cpu_run(cuda):
     torch.testing.assert_close(h_c.cpu(), h_h, rtol=1e-4, atol=1e-4)
     for name in ("c", "n", "m", "h"):
         torch.testing.assert_close(s_c[name].cpu(), s_h[name], rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder (whisper) and vision tokens (internvl2) on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("Sq,Sk", [(1, 1500), (77, 1500), (448, 1500), (300, 130), (1000, 65)])
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_non_causal_sq_ne_sk(cuda, dtype, D, Sq, Sk):
+    """Non-causal attention with Sq != Sk: fewer queries than keys
+    (whisper's cross-attention, a prompt against 1500 encoder rows: one
+    partial q tile against 24 kv tiles) and more queries than keys, the
+    operands as transposed views of [B, S, H, D]; two calls give the same
+    bits."""
+    g = torch.Generator(device=cuda).manual_seed(Sq + Sk + D)
+    q = _randn(g, (1, Sq, 6, D), dtype, cuda)
+    k = _randn(g, (1, Sk, 6, D), dtype, cuda)
+    v = _randn(g, (1, Sk, 6, D), dtype, cuda)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    got = ops.flash_attention(qt, kt, vt, causal=False)
+    assert got.stride() == qt.stride()
+    want = kref.mha_ref(qt, kt, vt, sm_scale=1 / math.sqrt(D), causal=False)
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+    assert torch.equal(ops.flash_attention(qt, kt, vt, causal=False), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernels_at_internvl2_head_layout(cuda, dtype):
+    """internvl2-1b's attention layer: 14 query heads over 2 kv heads (G =
+    7), head dim 64; flash prefill of 256 patches + 1, 9 and 1024 tokens in
+    the model's layout, and decode of 8 slots against [8, 2048, 2, 64]
+    caches with lengths 1 to 2048."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    for S in (257, 265, 1280):
+        q = _randn(g, (1, S, 14, 64), dtype, cuda)
+        k, v = _randn(g, (1, S, 2, 64), dtype, cuda), _randn(g, (1, S, 2, 64), dtype, cuda)
+        got = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        want = kref.mha_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                            sm_scale=1 / 8, causal=True)
+        torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+    q = _randn(g, (8, 14, 64), dtype, cuda)
+    kc, vc = _randn(g, (8, 2048, 2, 64), dtype, cuda), _randn(g, (8, 2048, 2, 64), dtype, cuda)
+    lengths = torch.tensor([1, 2048, 63, 64, 65, 1000, 2047, 257], dtype=torch.int32, device=cuda)
+    got = ops.decode_attention(q, kc.transpose(1, 2), vc.transpose(1, 2), lengths)
+    want = kref.decode_ref(q.reshape(8, 2, 7, 64), kc.transpose(1, 2), vc.transpose(1, 2),
+                           lengths.reshape(8, 1), sm_scale=1 / 8).reshape(8, 14, 64)
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("S", [24, 448, 1500])
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_full_static_cache(cuda, dtype, D, S):
+    """Cross-attention decode: every slot's length is the whole static
+    cache (whisper's 1500 encoder rows, and its reduced config's 24), as
+    strided views of [B, S, Hkv, D]."""
+    g = torch.Generator(device=cuda).manual_seed(S + D)
+    q = _randn(g, (8, 6, D), dtype, cuda)
+    kc, vc = _randn(g, (8, S, 6, D), dtype, cuda), _randn(g, (8, S, 6, D), dtype, cuda)
+    lengths = torch.full((8,), S, dtype=torch.int32, device=cuda)
+    got = ops.decode_attention(q, kc.transpose(1, 2), vc.transpose(1, 2), lengths)
+    want = kref.decode_ref(q.reshape(8, 6, 1, D), kc.transpose(1, 2), vc.transpose(1, 2),
+                           lengths.reshape(8, 1), sm_scale=1 / math.sqrt(D)).reshape(8, 6, D)
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-1b"])
+def test_multimodal_model_kernel_path_matches_plain_path(cuda, arch):
+    """The reduced whisper and internvl2 configs in float32 on the card:
+    prefill (with frames or patches) and decode under attn_impl="pallas"
+    (whisper: a flash launch per encoder layer and two per decoder layer a
+    prefill, two decode launches per decoder layer a step; internvl2: one of
+    each per layer) against the plain "naive" path on the same weights; then
+    3 requests through a 2-slot `ServeEngine` on each path give the same
+    greedy tokens."""
+    from repro_torch import configs
+    from repro_torch.serving.engine import Request, ServeEngine, pad_cache_to_capacity
+
+    cfg = dataclasses.replace(configs.get_reduced(arch), dtype="float32", attn_impl="pallas")
+    plain = dataclasses.replace(cfg, attn_impl="naive")
+    params = get_model(cfg).init_params(seed=1, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (2, 11), generator=g, device=cuda)
+    name, rows = (("frames", cfg.n_audio_frames) if cfg.is_encoder_decoder
+                  else ("patches", cfg.n_vision_tokens))
+    batch = {"tokens": toks, name: torch.randn((2, rows, cfg.d_model), generator=g, device=cuda)}
+    enc_dec = cfg.is_encoder_decoder
+    per_pre = cfg.n_encoder_layers + 2 * cfg.n_layers if enc_dec else cfg.n_layers
+    per_step = 2 * cfg.n_layers if enc_dec else cfg.n_layers
+    tol = ATTN_TOL[torch.float32]
+    ops.reset_launches()
+    lk, ck = get_model(cfg).prefill(params, batch)
+    lp, cp = get_model(plain).prefill(params, batch)
+    assert ops.launch_counts()["flash_attention"] == per_pre
+    torch.testing.assert_close(lk, lp, rtol=tol["rtol"], atol=tol["atol"] * float(lp.abs().max()))
+    pos = 11 + (0 if enc_dec else cfg.n_vision_tokens)      # the prefill's positions
+    ck = pad_cache_to_capacity(ck, get_model(cfg).cache_axes(), pos + 4)
+    cp = pad_cache_to_capacity(cp, get_model(cfg).cache_axes(), pos + 4)
+    for step in range(3):
+        lk, ck = get_model(cfg).decode_step(params, ck, toks[:, step:step + 1], pos + step)
+        lp, cp = get_model(plain).decode_step(params, cp, toks[:, step:step + 1], pos + step)
+        torch.testing.assert_close(lk, lp, rtol=tol["rtol"],
+                                   atol=tol["atol"] * float(lp.abs().max()))
+    assert ops.launch_counts()["decode_attention"] == 3 * per_step
+    rng = np.random.default_rng(3)
+    reqs = [(rng.integers(0, cfg.vocab_size, n), rng.standard_normal((rows, cfg.d_model)))
+            for n in (3, 5, 2)]
+    out = []
+    for c in (cfg, plain):
+        eng = ServeEngine(get_model(c), params, n_slots=2, cap=24 if enc_dec else 20 + rows,
+                          device=cuda)
+        rs = [Request(i, t, 6, extras={name: x}) for i, (t, x) in enumerate(reqs)]
+        for r in rs:
+            eng.submit(r)
+        eng.drain()
+        out.append([r.generated for r in rs])
+    assert out[0] == out[1]

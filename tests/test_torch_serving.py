@@ -150,5 +150,5 @@ def test_cache_helpers_and_device_rule(monkeypatch):
     eng = ServeEngine(m, p, 1, 8, device="cpu")
     with pytest.raises(ValueError, match="prompt"):
         eng.submit(Request(0, np.arange(8)))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="extras"):      # a text model takes none
         eng.submit(Request(0, np.arange(3), extras={"patches": np.zeros(3)}))
