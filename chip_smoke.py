@@ -27,7 +27,10 @@ build_schedule(standard_fault_mix(1.0, ...)))``) and the WAN layer
 gates run through ``FleetTrafficSim`` and ``SessionTrafficSim``.  The
 serving launcher (``repro_torch.launch.serve``: ``serve_sync`` and
 ``serve_online``) drives the replicas and the gateway end to end, with the
-audit tap and the device route statistics on.  The MoE decoders
+audit tap and the device route statistics on.  The training driver
+(``repro_torch.launch.train.train_loop``) trains internlm2-1.8b at full
+width and depth, its fleet monitor scoring the simulated pods through the
+QoS kernel every step.  The MoE decoders
 (deepseek-moe-16b, llama4-scout) and the recurrent families (the Mamba-2
 hybrid jamba-1.5-large-398b at full width, xlstm-125m at full width and
 depth) are served through the same ``ServeEngine``, and so are the
@@ -199,6 +202,28 @@ depth.
    vision frontend's output), prompts of 16 to 1536 tokens, 32 new each,
    through 8 slots of cap 2048: 24 flash launches per admitted request, 24
    decode launches per step, held as (a); (d) the same in f32, as (b);
+3k. training, with the counters set to 0 before the training run and
+   before the eval step: (a) ``repro_torch.launch.train.train_loop`` on
+   internlm2-1.8b at full width and depth (bf16, ``remat="full"``, chunked
+   attention of 512-row chunks, AdamW(lr=1e-3, warmup_steps=20)), 8 steps
+   of 4 x 2048 tokens with 4 simulated pods, the straggler and the crash
+   injected: every loss and grad norm finite, the last loss below the
+   first, each step's QoS scores (the kernel, one launch a step) within rtol
+   2e-6 / atol 2e-7 of the plain ``network_score`` of the same telemetry
+   and the healthy set equal to the plain set, the crashed pod excluded;
+   the step times, the peak device memory, the step's bound and a profile
+   of one step (device busy share, GEMM share); an eval step of the
+   ``attn_impl="pallas"`` config under ``torch.no_grad()`` (24 flash
+   launches) within 2e-2 of the chunked eval loss, its flash outputs at the
+   first and last layer within rtol = atol = 2e-2 of ``mha_ref`` on their
+   own inputs (batch 4), and a train step of
+   that config refused (the kernel is forward only); (b) 3 f32 steps of
+   each family's reduced config (internlm2, deepseek-moe, jamba, xlstm,
+   whisper, internvl2) on the card against the CPU, loss and grad norm
+   within 1e-4, and the same steps in bf16 lowering the loss; (c) a reduced
+   ``train_loop`` checkpointing every 3 steps under ``build/``, its restart
+   running only the remaining steps, and a state saved on the card restored
+   bit for bit;
 4. times: each kernel's median over CUDA-event-timed launches beside its
    plain version, one library call where there is one, and its bound; the
    end-to-end ``route_texts`` time per batch on both paths; a profile of one
@@ -1124,9 +1149,11 @@ def main(rehearse: bool) -> None:
         att_err = {}
         half = S_att // 2
         cap_j = S_att * 5 // 8
-        flash_cases = [(S, 16, 8) for S in (S_att, half - 24, 16)] \
-            + [(S, hq, hkv) for hq, hkv in ((16, 16), (40, 8)) for S in (S_att, half - 24)] \
-            + [(S, 64, 8) for S in (half + 76, 257)]
+        # phase 3k (a)'s flash eval step: internlm2-1.8b's 16 / 8 heads over
+        # its batch of 4 x S_att, the one layout with B > 1
+        flash_cases = [(1, S, 16, 8) for S in (S_att, half - 24, 16)] \
+            + [(1, S, hq, hkv) for hq, hkv in ((16, 16), (40, 8)) for S in (S_att, half - 24)] \
+            + [(1, S, 64, 8) for S in (half + 76, 257)] + [(4, S_att, 16, 8)]
         dec_lens = [1, S_att, 63, 64, 65, half - 24, S_att - 1, 200]
         decode_cases = [(S_att, dec_lens, 16, 8), (256, [17, 19, 21, 23], 16, 8),
                         (S_att, dec_lens, 16, 16), (half, [1, half, 513, half - 24], 40, 8),
@@ -1168,15 +1195,17 @@ def main(rehearse: bool) -> None:
                     got, want, tol, f"decode {dt} {hq}/{hkv} heads {nb} slots cap {cap_} D 64")
         for dt in (torch.bfloat16, torch.float32):
             tol = ATTN_TOL[str(dt).split(".")[1]]
-            for S, hq, hkv in flash_cases:
-                q = attn_rand((1, S, hq, 128), dt)
-                k, v = attn_rand((1, S, hkv, 128), dt), attn_rand((1, S, hkv, 128), dt)
+            for nb, S, hq, hkv in flash_cases:
+                q = attn_rand((nb, S, hq, 128), dt)
+                k, v = attn_rand((nb, S, hkv, 128), dt), attn_rand((nb, S, hkv, 128), dt)
                 got = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
                 want = kref.mha_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                     sm_scale=1 / math.sqrt(128), causal=True)
                 sync()
-                att_err["flash_attention", dt, hq, hkv, S] = attn_close(
-                    got, want, tol, f"flash {dt} {hq}/{hkv} heads S {S}")
+                what = S if nb == 1 else f"{S}, B {nb}"
+                att_err["flash_attention", dt, hq, hkv, what] = attn_close(
+                    got, want, tol, f"flash {dt} {hq}/{hkv} heads S {what}")
+                del q, k, v, got, want
             for cap_, lens, hq, hkv in decode_cases:
                 nb = len(lens)
                 qd = attn_rand((nb, hq, 128), dt)
@@ -2501,6 +2530,383 @@ def main(rehearse: bool) -> None:
     if failures_3j:
         fail("phase 3j: " + " | ".join(failures_3j))
 
+    # ----------------------------------------------------------------- 3k
+    # training (the reduced internlm2 in the rehearsal): (a) internlm2-1.8b
+    # at full width and depth, bf16, remat="full", attn_impl="chunked",
+    # through `repro_torch.launch.train.train_loop` (AdamW, 4 x 2048 tokens
+    # a step, 8 steps, 4 simulated pods with the straggler and the crash
+    # injected): finite falling losses, finite non-zero grad norms, each
+    # step's QoS scores (the kernel) held to the plain `network_score` of the
+    # same telemetry, the healthy set to the plain set, one QoS launch a
+    # step; a profile of one step; an eval step through the flash kernel
+    # against the chunked one, and the flash config refused under grad; (b)
+    # 3 f32 steps of each family's reduced config on the card against the
+    # CPU, and the same steps in bf16 lowering the loss; (c) a reduced run
+    # that checkpoints on the card: restores bit for bit, a restart runs only
+    # the remaining steps.  (b) and (c) run first: a process's first
+    # `torch.utils.checkpoint` call imports torch._dynamo (seconds), which
+    # would otherwise fall into (a)'s first step and its fleet telemetry.
+    import shutil
+
+    from repro_torch import tree as tree_util
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.ft import checkpoint as ft_ckpt
+    from repro_torch.ft.failure import step_time_qos
+    from repro_torch.launch import train as train_launch
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_step import make_eval_step, make_train_step
+
+    t_3k = time.perf_counter()
+    failures_3k = []
+    launches_3k = dict.fromkeys(ops.launch_counts(), 0)
+    # what a process's first checkpointed step pays once: the import of
+    # torch._dynamo (host clock)
+    if "torch._dynamo" in sys.modules:
+        log("phase 3k: torch._dynamo was imported before phase 3k")
+    else:
+        t0 = time.perf_counter()
+        import torch._dynamo  # noqa: F401
+        log(f"phase 3k: importing torch._dynamo (what the first torch.utils.checkpoint call of "
+            f"a process does) took {time.perf_counter() - t0:.2f} s (host clock)")
+
+    # (b) each family's reduced config: 3 f32 steps on the card against the
+    # CPU (the same weights, drawn on the CPU, and the same batch), then the
+    # same steps in bf16 on the card
+    cpu = torch.device("cpu")
+    fam_rows = []
+    for arch in ("internlm2-1.8b", "deepseek-moe-16b", "jamba-1.5-large-398b", "xlstm-125m",
+                 "whisper-tiny", "internvl2-1b"):
+        red = lm_configs.get_reduced(arch)
+        runs = {}
+        for tag, dt, where in (("card", "float32", dev), ("cpu", "float32", cpu),
+                               ("bf16", "bfloat16", dev)):
+            c_ = dataclasses.replace(red, dtype=dt)
+            m_ = get_model(c_)
+            p_ = tree_util.map(lambda t: t.to(where), m_.init_params(seed=0, device="cpu"))
+            o_ = AdamW(lr=3e-3, warmup_steps=1)
+            s_ = o_.init(p_)
+            fn_ = make_train_step(m_, o_)
+            b_ = train_launch.add_batch_extras(
+                dict(make_batch(DataConfig(c_.vocab_size, 32, 2, seed=0), 0)), c_, 2,
+                np.random.default_rng(0))
+            b_ = {k: v.to(where) for k, v in b_.items()}
+            runs[tag] = []
+            for _ in range(3):
+                p_, s_, met = fn_(p_, s_, b_)
+                runs[tag].append((float(met["loss"]), float(met["grad_norm"])))
+        err = max(abs(a - b) / max(1.0, abs(b)) for ra, rb in zip(runs["card"], runs["cpu"])
+                  for a, b in zip(ra, rb))
+        if not err <= 1e-4:
+            failures_3k.append(f"phase 3k (b): {arch}: f32 card {runs['card']} against the CPU "
+                               f"{runs['cpu']}")
+        bl = [x for x, _ in runs["bf16"]]
+        if not (all(math.isfinite(x) for x in bl) and bl[-1] < bl[0]):
+            failures_3k.append(f"phase 3k (b): {arch}: bf16 losses {bl} do not fall")
+        fam_rows.append(f"{arch} {err:.2g} (bf16 {bl[0]:.4f} -> {bl[-1]:.4f})")
+    log("phase 3k (b): 3 steps of each reduced config, f32 card against CPU (largest relative "
+        "difference of loss and grad norm), bf16 loss: " + "; ".join(fam_rows))
+    free_card()
+
+    # (c) a reduced run that checkpoints on the card
+    ck_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    red = lm_configs.get_reduced("internlm2-1.8b")
+    run_a = train_launch.train_loop(red, steps=6, global_batch=2, seq_len=32,
+                                    ckpt_dir=str(ck_dir / "run"), ckpt_every=3, log_every=100,
+                                    device=dev)
+    last = ft_ckpt.latest_step(str(ck_dir / "run"))
+    run_b = train_launch.train_loop(red, steps=8, global_batch=2, seq_len=32,
+                                    ckpt_dir=str(ck_dir / "run"), ckpt_every=3, log_every=100,
+                                    device=dev)
+    if last != 6 or len(run_a) != 6 or len(run_b) != 2:
+        fail(f"phase 3k (c): latest step {last}, {len(run_a)} steps then {len(run_b)} on restart "
+             "(expected 6, 6, 2)")
+    m_ = get_model(red)
+    p_ = m_.init_params(seed=5, device=dev)
+    o_ = AdamW()
+    s_ = o_.init(p_)
+    b_ = {k: v.to(dev) for k, v in make_batch(DataConfig(red.vocab_size, 32, 2), 0).items()}
+    p_, s_, _ = make_train_step(m_, o_)(p_, s_, b_)
+    ft_ckpt.save(str(ck_dir / "state"), 1, (p_, s_), {"next_step": 2})
+    like = m_.init_params(seed=6, device=dev)
+    (rp, rs), ck_extras = ft_ckpt.restore(str(ck_dir / "state"), 1, (like, o_.init(like)))
+    pairs = list(zip(tree_util.leaves((p_, s_)), tree_util.leaves((rp, rs))))
+    bad = [i for i, (a, b) in enumerate(pairs)
+           if a.dtype != b.dtype or a.device != b.device or not torch.equal(a, b)]
+    if bad or ck_extras != {"next_step": 2}:
+        fail(f"phase 3k (c): {len(bad)} of {len(pairs)} restored tensors differ")
+    n_bf16 = sum(a.dtype == torch.bfloat16 for a, _ in pairs)
+    log(f"phase 3k (c): {red.name} (bf16) trained 6 steps with checkpoints every 3, latest step "
+        f"{last}; the restart ran {len(run_b)} steps; a state saved on {dev} restored bit for "
+        f"bit ({len(pairs)} tensors, {n_bf16} bf16, on {dev})")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    del p_, s_, rp, rs, like
+    free_card()
+    full_tr = (lm_configs.get_reduced("internlm2-1.8b") if rehearse
+               else lm_configs.get_config("internlm2-1.8b"))
+    tr_cfg = dataclasses.replace(full_tr, dtype="bfloat16", remat="full", attn_impl="chunked",
+                                 attn_chunk=512 if not rehearse else 16)
+    B_tr, S_tr, n_tr = (4, 64, 8) if rehearse else (4, 2048, 8)
+    free_card()
+    log(f"phase 3k (a): {tr_cfg.name}: {tr_cfg.n_layers} layers, d_model {tr_cfg.d_model}, "
+        f"{tr_cfg.n_heads}/{tr_cfg.n_kv_heads} heads of {tr_cfg.resolved_head_dim}, d_ff "
+        f"{tr_cfg.d_ff}, vocab {tr_cfg.padded_vocab}, bf16, remat {tr_cfg.remat}, attention "
+        f"{tr_cfg.attn_impl} (chunk {tr_cfg.attn_chunk}); train_loop: {n_tr} steps of "
+        f"{B_tr} x {S_tr} tokens, AdamW(lr=1e-3, warmup_steps=20), 4 pods, failures injected")
+    ops.reset_launches()                       # phase 3k (a)'s count starts here
+    records = []
+    t0 = time.perf_counter()
+    losses = train_launch.train_loop(tr_cfg, steps=n_tr, global_batch=B_tr, seq_len=S_tr,
+                                     n_pods=4, inject_failures=True, log_every=1, seed=0,
+                                     device=dev, records=records)
+    sync()
+    wall_tr = time.perf_counter() - t0
+    ka = ops.launch_counts()                   # ... and is read here
+    peak_tr = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else 0.0
+    launches_3k["qos_scores"] += ka["qos_scores"]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"phase 3k (a): losses not finite and falling: {losses}")
+    gns = [r["grad_norm"] for r in records]
+    if not all(math.isfinite(g) and g > 0 for g in gns):
+        fail(f"phase 3k (a): grad norms {gns}")
+    qos_tr = step_time_qos(1.0)
+    q_err = 0.0
+    for r in records:
+        plain = network_score(torch.from_numpy(r["telemetry"]).to(dev), qos_tr).cpu().numpy()
+        if not np.allclose(r["scores"], plain, rtol=RTOL, atol=ATOL):
+            fail(f"phase 3k (a): step {r['step']}: QoS scores {r['scores']} against the plain "
+                 f"{plain}")
+        q_err = max(q_err, float(np.abs(r["scores"] - plain).max()))
+        want_h = [int(i) for i in np.where(plain >= 0.25)[0]] or [int(np.argmax(plain))]
+        if r["healthy"] != want_h:
+            fail(f"phase 3k (a): step {r['step']}: healthy {r['healthy']}, plain {want_h}")
+    max_err["qos_scores"] = max(max_err["qos_scores"], q_err)
+    if not rehearse:
+        if ka["qos_scores"] != len(records):
+            fail(f"phase 3k (a): {ka['qos_scores']} QoS launches for {len(records)} steps")
+        others = {k: v for k, v in ka.items() if k != "qos_scores" and v}
+        if others:
+            fail(f"phase 3k (a): the training path launched other kernels: {others}")
+    if 2 in records[-1]["healthy"]:
+        fail(f"phase 3k (a): the crashed pod 2 is still healthy: {records[-1]['healthy']}")
+    secs = [r["seconds"] for r in records]
+    tok_tr = B_tr * S_tr
+    log(f"phase 3k (a): {len(records)} steps in {wall_tr:.2f} s wall (first draws the weights); "
+        f"losses {[round(x, 4) for x in losses]}; grad norms {[round(g, 3) for g in gns]}; "
+        f"step times {[round(s, 3) for s in secs]} s (host clock; median "
+        f"{statistics.median(secs):.3f} s, {tok_tr / statistics.median(secs):.0f} tokens/s); "
+        f"healthy pods by step {[r['healthy'] for r in records]}; QoS launches {ka['qos_scores']}"
+        f", kernel within {q_err:.3g} of the plain scores; peak device memory {peak_tr:.3f} GiB "
+        f"[{smi_tag}]")
+
+    # the step's bound, from the work the function needs: the bf16 matmuls
+    # of the layers and the head 3 times (forward, 2 in backward), and the
+    # causal half of f32 attention 3 times (forward QK^T and PV; backward
+    # twice that), against each type's peak; bytes: params, grads and both
+    # moments read once and written once.  The step does more: remat runs
+    # the layers' forward again, and the chunked path computes every
+    # [chunk, S] block whole, in the forward, the remat forward, each
+    # chunk's recompute and 2 in backward; that overhead is printed apart
+    d_, hd_, nq_, nkv_ = tr_cfg.d_model, tr_cfg.resolved_head_dim, tr_cfg.n_heads, \
+        tr_cfg.n_kv_heads
+    layer_mm = 2 * (d_ * nq_ * hd_ * 2 + 2 * d_ * nkv_ * hd_ + 3 * d_ * tr_cfg.d_ff)
+    head_mm = 2 * d_ * tr_cfg.padded_vocab
+    attn_sq = tr_cfg.n_layers * 2 * 2 * B_tr * nq_ * S_tr * S_tr * hd_   # one full-square pass
+    bf16_ops = tok_tr * 3 * (tr_cfg.n_layers * layer_mm + head_mm)
+    f32_ops = 3 * attn_sq // 2
+    bf16_done = bf16_ops + tok_tr * tr_cfg.n_layers * layer_mm
+    f32_done = 5 * attn_sq
+    n_tr_par = tr_cfg.param_counts()["total"] + (1 + (not tr_cfg.tie_embeddings)) * \
+        (tr_cfg.padded_vocab - tr_cfg.vocab_size) * d_
+    bytes_tr = n_tr_par * (2 + 2 + 8) * 2
+    t_ops = bf16_ops / BF16_OPS_PER_S + f32_ops / FP32_OPS_PER_S
+    t_done = bf16_done / BF16_OPS_PER_S + f32_done / FP32_OPS_PER_S
+    t_bytes = bytes_tr / HBM_BYTES_PER_S
+    bound_tr = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+    med_tr = statistics.median(secs)
+    log(f"phase 3k (a): bound of one step {1e3 * bound_tr[0]:.1f} ms ({bound_tr[1]}: "
+        f"{bf16_ops / 1e12:.1f} TFLOP bf16 at 989 TFLOP/s + {f32_ops / 1e12:.1f} TFLOP f32 at "
+        f"67 TFLOP/s = {1e3 * t_ops:.1f} ms; {bytes_tr / 1e9:.1f} GB at 3.35 TB/s = "
+        f"{1e3 * t_bytes:.1f} ms) against the median step {1e3 * med_tr:.1f} ms "
+        f"({med_tr / bound_tr[0]:.2f} x the bound)")
+    log(f"phase 3k (a): recompute and masked work over the bound: the step does "
+        f"{bf16_done / 1e12:.1f} TFLOP bf16 (the remat forward) + {f32_done / 1e12:.1f} TFLOP "
+        f"f32 (5 full-square attention passes), {1e3 * t_done:.1f} ms at peak, "
+        f"{1e3 * (t_done - t_ops):.1f} ms more than the bound")
+
+    # one step profiled, then the eval steps, on fresh weights from the same seed
+    tr_model = get_model(tr_cfg)
+    tr_params = tr_model.init_params(seed=0, device=dev)
+    tr_opt = AdamW(lr=1e-3, warmup_steps=20)
+    tr_state = tr_opt.init(tr_params)
+    tr_step = make_train_step(tr_model, tr_opt)
+    tr_batch = {k: v.to(dev) for k, v in
+                make_batch(DataConfig(tr_cfg.vocab_size, S_tr, B_tr, seed=0), 0).items()}
+    tr_step(tr_params, tr_state, tr_batch)
+    sync()
+    n_before_eval = 1
+    busy_tr = None
+    if dev.type == "cuda":
+        n_before_eval += 1
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        for _ in range(3):
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                tr_step(tr_params, tr_state, tr_batch)
+                sync()
+                wall_p = (time.perf_counter() - t0) * 1e3
+            # device ms by kernel, and by the host op that launched it (its
+            # linked correlation id): aten::mm is the bf16 projections and the
+            # head, aten::bmm the f32 attention products
+            kern: dict = {}
+            by_op: dict = {}
+            host_ops, dev_recs = {}, []
+            for e in prof.profiler.kineto_results.events():
+                if e.device_type() == torch.autograd.DeviceType.CUDA:
+                    if not e.is_user_annotation():
+                        dev_recs.append((e.name(), e.duration_ns() / 1e6,
+                                         e.linked_correlation_id()))
+                elif e.linked_correlation_id() == 0:
+                    host_ops[e.correlation_id()] = e.name()
+            for name, ms_, link in dev_recs:
+                kern[name] = kern.get(name, 0.0) + ms_
+                op_ = host_ops.get(link, "(no host op)")
+                by_op[op_] = by_op.get(op_, 0.0) + ms_
+            if kern:
+                busy_tr = sum(kern.values())
+                break
+        if busy_tr is None:
+            log(f"phase 3k (a): profile of one step: not measured (wall {wall_p:.1f} ms; no "
+                "device activity traced)")
+        else:
+            top = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
+            top_ops = sorted(by_op.items(), key=lambda kv: -kv[1])[:10]
+            log(f"phase 3k (a): profile of one step: wall {wall_p:.1f} ms, device busy "
+                f"{busy_tr:.1f} ms ({100 * busy_tr / wall_p:.1f} %); device ms by host op: "
+                + "; ".join(f"{k} {v:.1f} ({100 * v / busy_tr:.1f} %)" for k, v in top_ops)
+                + "; top kernels (ms): " + "; ".join(f"{k[:56]} {v:.1f}" for k, v in top)
+                + f" [{smi_tag}]")
+
+        # two parts of the step alone (CUDA events, median of 3 after a
+        # warm-up): the head, f32 logits and CE, forward and backward; one
+        # layer's chunked attention forward, and forward + backward (the
+        # per-chunk recompute included)
+        def ev_ms(fn, n=3):
+            fn()
+            sync()
+            out = []
+            for _ in range(n):
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                fn()
+                b.record()
+                b.synchronize()
+                out.append(a.elapsed_time(b))
+            return statistics.median(out)
+
+        from repro_torch.models import attention as attn_mod
+        from repro_torch.nn import core as nn_mod
+
+        g_ = torch.Generator(device=dev).manual_seed(1)
+        xh = torch.randn((B_tr, S_tr, d_), generator=g_, device=dev, dtype=torch.bfloat16)
+        xh.requires_grad_(True)
+        head_w = tr_params["head"].detach().clone().requires_grad_(True)
+        labels_ = tr_batch["labels"]
+
+        def head_ce():
+            with torch.enable_grad():
+                logits_ = nn_mod.dense(xh, head_w).to(torch.float32)
+                loss_, _ = nn_mod.softmax_cross_entropy(logits_, labels_)
+                torch.autograd.grad(loss_, (xh, head_w))
+
+        qa = torch.randn((B_tr, S_tr, nq_, hd_), generator=g_, device=dev, dtype=torch.bfloat16)
+        ka_ = torch.randn((B_tr, S_tr, nkv_, hd_), generator=g_, device=dev,
+                          dtype=torch.bfloat16)
+        va = torch.randn((B_tr, S_tr, nkv_, hd_), generator=g_, device=dev, dtype=torch.bfloat16)
+
+        def attn_fwd():
+            with torch.no_grad():
+                attn_mod._chunked_attn(qa, ka_, va, True, tr_cfg.attn_chunk)
+
+        def attn_fwd_bwd():
+            with torch.enable_grad():
+                q_, k_, v_ = (t.detach().requires_grad_(True) for t in (qa, ka_, va))
+                o_ = attn_mod._chunked_attn(q_, k_, v_, True, tr_cfg.attn_chunk)
+                torch.autograd.grad(o_.float().sum(), (q_, k_, v_))
+
+        hc, af, afb = ev_ms(head_ce), ev_ms(attn_fwd), ev_ms(attn_fwd_bwd)
+        att_step = tr_cfg.n_layers * (af + afb)      # the forward, then remat forward + backward
+        med_ms = 1e3 * statistics.median(secs)
+        log(f"phase 3k (a): alone: head + f32 logits [{B_tr}, {S_tr}, {tr_cfg.padded_vocab}] + CE "
+            f"forward and backward {hc:.1f} ms ({100 * hc / med_ms:.1f} % of the median step); "
+            f"one layer's chunked f32 attention forward {af:.1f} ms, forward + backward "
+            f"{afb:.1f} ms, so {att_step:.1f} ms a step over {tr_cfg.n_layers} layers "
+            f"({100 * att_step / med_ms:.1f} % of it) [{smi_tag}]")
+        del xh, head_w, qa, ka_, va
+    ev_plain = float(make_eval_step(tr_model)(tr_params, tr_batch)["loss"])
+    flash_model = get_model(dataclasses.replace(tr_cfg, attn_impl="pallas"))
+    # the eval step keeps copies of the inputs and output of its flash calls
+    # at the first and the last layer, held to `mha_ref` after the counts
+    # are read: the loss alone would not show a kernel wrong at B > 1
+    real_flash, kept_ev, n_ev = ops.flash_attention, {}, [0]
+
+    def flash_keep(*a, **k):
+        out = real_flash(*a, **k)
+        if n_ev[0] in (0, tr_cfg.n_layers - 1):
+            kept_ev[n_ev[0]] = ([x.clone() for x in a], k, out.clone())
+        n_ev[0] += 1
+        return out
+
+    ops.flash_attention = flash_keep
+    ops.reset_launches()                       # phase 3k (a)'s eval count starts here
+    try:
+        ev_kernel = float(make_eval_step(flash_model)(tr_params, tr_batch)["loss"])
+        sync()
+    finally:
+        ops.flash_attention = real_flash
+    ke = ops.launch_counts()                   # ... and is read here
+    launches_3k["flash_attention"] += ke["flash_attention"]
+    if sorted(kept_ev) != [0, tr_cfg.n_layers - 1]:
+        fail(f"phase 3k (a): kept the inputs of flash calls {sorted(kept_ev)}")
+    ev_att = {}
+    with torch.no_grad():
+        for i, (a, k, out) in sorted(kept_ev.items()):
+            want = kref.mha_ref(*a, sm_scale=1 / math.sqrt(a[0].shape[-1]),
+                                causal=k.get("causal", True))
+            sync()
+            ev_att[i] = attn_close(out, want, ATTN_TOL["bfloat16"],
+                                   f"phase 3k (a): flash eval layer {i}, q {list(a[0].shape)}")
+            del want
+    del kept_ev
+    max_err["flash_attention"] = max(max_err["flash_attention"], *ev_att.values())
+    try:
+        make_train_step(flash_model, tr_opt)(tr_params, tr_state, tr_batch)
+        fail("phase 3k (a): a train step through the flash kernel did not raise")
+    except RuntimeError as e:
+        if "forward only" not in str(e):
+            raise
+    if not rehearse and ops.launch_counts() != ke:
+        fail(f"phase 3k (a): the refused train step launched kernels: {ops.launch_counts()}")
+    if not rehearse and (ke["flash_attention"] != tr_cfg.n_layers
+                         or any(v for k, v in ke.items() if k != "flash_attention")):
+        fail(f"phase 3k (a): the flash eval step launched {ke}, expected {tr_cfg.n_layers} flash")
+    if not abs(ev_kernel - ev_plain) <= 2e-2:
+        failures_3k.append(f"phase 3k (a): flash eval loss {ev_kernel} against the chunked "
+                           f"{ev_plain} (tolerance 2e-2)")
+    log(f"phase 3k (a): eval step on one batch after {n_before_eval} steps from the same seed: "
+        f"flash kernel "
+        f"loss {ev_kernel:.5f} ({ke['flash_attention']} flash launches), chunked {ev_plain:.5f}, "
+        f"difference {abs(ev_kernel - ev_plain):.3g} (tolerance 2e-2); the flash outputs of "
+        f"layers {sorted(ev_att)} against mha_ref on their own inputs, max abs "
+        f"{[round(e, 6) for _, e in sorted(ev_att.items())]} (rtol = atol = "
+        f"{ATTN_TOL['bfloat16']}); the flash config under grad raises (forward only) [{smi_tag}]")
+    del tr_params, tr_state, tr_batch
+    free_card()
+
+    log(f"phase 3k: {time.perf_counter() - t_3k:.1f} s in all; launches {launches_3k}")
+    if failures_3k:
+        fail("phase 3k: " + " | ".join(failures_3k))
+
     # ------------------------------------------------------------------ 4
     def timed(fn, n=reps):
         """Median ms of ``n`` calls after two warm-up calls (CUDA events on the card)."""
@@ -3230,7 +3636,7 @@ def main(rehearse: bool) -> None:
              replaces=REPLACES[r["name"]],
              launches=(mlaunches if r["name"] == "fused_select" else
                        slaunches if r["name"] in ("flash_attention", "decode_attention")
-                       else launches)[r["name"]],
+                       else launches)[r["name"]] + launches_3k[r["name"]],
              max_abs_err=max_err[r["name"]], ms=r["ms"], plain_ms=r["plain_ms"],
              bound_ms=r["bound"][0], bound_by=r["bound"][1], library_ms=r["library_ms"])
         for r in rows

@@ -5,7 +5,8 @@ plain PyTorch version, CUDA tensors to the hand-written CUDA kernel, which
 either launches or raises (there is no fallback).  Operands on mixed
 devices raise.  Each kernel launcher keeps an integer count of its
 launches (`launch_counts`), so a run can show that it went through the
-kernels.
+kernels.  The two attention wrappers are forward only: a call that
+autograd would record raises, on the CPU as on the card.
 """
 from __future__ import annotations
 
@@ -42,6 +43,18 @@ def launch_counts() -> dict:
 def reset_launches() -> None:
     for fn in _LAUNCHERS.values():
         fn.launches = 0
+
+
+def _forward_only(name: str, *tensors) -> None:
+    """The attention kernels have no backward (nor has the reference's
+    Pallas kernel: `jax.grad` through it raises), so a call that autograd
+    would record raises on either device instead of returning a result
+    without a gradient."""
+    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(
+            f"repro_torch.ops.{name}: the kernel is forward only and an operand requires "
+            "grad; train with attn_impl='naive' or 'chunked', or call it under torch.no_grad()")
 
 
 def _on_cuda(*tensors) -> bool:
@@ -249,7 +262,10 @@ def flash_attention(
     bottom-right, ``tril(k=Sk - Sq)`` as `mha_ref` has it, not the Pallas
     kernel's top-left, so with Sq < Sk the queries are the last Sq
     positions.  On the card a head dim between the kernel's widths
-    (`flash_attention.HEAD_DIMS`) is zero-padded to the next one."""
+    (`flash_attention.HEAD_DIMS`) is zero-padded to the next one.  Forward
+    only, on both devices: under grad mode an operand that requires grad
+    raises (`_forward_only`)."""
+    _forward_only("flash_attention", q, k, v)
     sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if not _on_cuda(q, k, v):
         return kref.mha_ref(q, k, v, sm_scale=sm_scale, causal=causal)
@@ -269,6 +285,7 @@ def decode_attention(
     strided view with a contiguous last dim (the model's [B, S, Hkv, D]
     cache, transposed); a head dim between the kernel's widths is
     zero-padded to the next one (a copy of the cache per call)."""
+    _forward_only("decode_attention", q, k, v)
     B, Hq, D = q.shape
     Hkv = k.shape[1]
     G = Hq // Hkv

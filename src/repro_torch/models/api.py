@@ -4,11 +4,13 @@
     params = model.init_params(seed=0, device=None)   # None: the CUDA card
     logits, cache = model.prefill(params, {"tokens": tokens})          # [B, 1, V]
     logits, cache = model.decode_step(params, cache, tokens, cache_len)
+    loss, metrics = model.loss(params, {"tokens": tokens, "labels": labels})
 
 An encoder-decoder config (``is_encoder_decoder``) runs
 `repro_torch.models.whisper` and its prefill batch adds ``frames`` [B, F,
 d]; a VLM config's adds ``patches`` [B, V, d]; every other config runs
-`repro_torch.models.lm`.
+`repro_torch.models.lm`.  `Model.loss` is differentiable (autograd);
+`repro_torch.training.train_step` takes its gradients.
 """
 from __future__ import annotations
 
@@ -26,13 +28,14 @@ from repro_torch.nn import core as nn
 class _Family(NamedTuple):
     init: Callable           # (ctx, cfg) -> params
     forward: Callable        # (params, cfg, batch, mode, cache, cache_len) -> (logits, cache)
+    loss: Callable           # (params, cfg, batch) -> (loss, metrics)
     init_cache: Callable     # (cfg, batch, cap, device) -> cache
     cache_axes: Callable     # (cfg) -> axes tree
 
 
-_LM = _Family(lm.lm_init, lm.lm_forward, lm.lm_init_cache, lm.lm_cache_axes)
-_WHISPER = _Family(whisper.whisper_init, whisper.whisper_forward, whisper.whisper_init_cache,
-                   whisper.whisper_cache_axes)
+_LM = _Family(lm.lm_init, lm.lm_forward, lm.lm_loss, lm.lm_init_cache, lm.lm_cache_axes)
+_WHISPER = _Family(whisper.whisper_init, whisper.whisper_forward, whisper.whisper_loss,
+                   whisper.whisper_init_cache, whisper.whisper_cache_axes)
 
 
 def _family(cfg: ModelConfig) -> _Family:
@@ -49,6 +52,18 @@ class Model:
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         return _family(self.cfg).init(nn.InitCtx(gen=gen, dtype=self.cfg.torch_dtype), self.cfg)
+
+    def forward(self, params, batch, mode: str = "train", cache=None, cache_len=None):
+        """The family's forward: ``train`` -> (logits at every position,
+        aux), ``prefill`` / ``decode`` -> (logits, cache); autograd records
+        it when grad mode is on."""
+        return _family(self.cfg).forward(params, self.cfg, batch, mode, cache, cache_len)
+
+    def loss(self, params, batch):
+        """(loss, metrics): {"ce", "aux", "n_tokens"} for an LM (a MoE's
+        load-balancing loss in "aux" and in the loss), {"ce", "n_tokens"}
+        for whisper, as the reference."""
+        return _family(self.cfg).loss(params, self.cfg, batch)
 
     @torch.no_grad()
     def prefill(self, params, batch):

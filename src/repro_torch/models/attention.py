@@ -6,9 +6,14 @@ decoder against the encoder's output).
 Three interchangeable prefill paths (``cfg.attn_impl``):
   naive   — full [Sq, Sk] scores, grouped products (no KV expansion)
   chunked — the naive path over q-chunks of ``cfg.attn_chunk`` rows (a
-            Python loop; no checkpointing, there is no training yet)
+            Python loop); under autograd each chunk is checkpointed, so
+            the backward keeps one chunk's [B, H, chunk, Sk] scores at a
+            time, as the reference's `nothing_saveable` chunks
   pallas  — `kernels.ops.flash_attention`: the hand-written CUDA kernel
-            on the card (its plain version, `mha_ref`, for CPU tensors)
+            on the card (its plain version, `mha_ref`, for CPU tensors).
+            Forward only: like the reference's Pallas kernel it has no
+            backward, so a call whose operands require grad raises on
+            either device (train with ``naive`` or ``chunked``)
 
 Decode appends the new token's K/V to the cache **in place** (the
 reference returns a new cache) and attends over ``cache_len + 1`` rows;
@@ -29,6 +34,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
@@ -111,19 +117,28 @@ def _naive_attn(q, k, v, causal: bool, q_offset: int = 0):
 
 def _chunked_attn(q, k, v, causal: bool, chunk: int):
     """The naive path over q-chunks of ``chunk`` rows: peak live memory
-    [B, H, chunk, Sk] instead of [B, H, Sq, Sk]."""
+    [B, H, chunk, Sk] instead of [B, H, Sq, Sk].  When autograd records
+    (grad on and an operand requiring grad) each chunk is checkpointed:
+    otherwise the backward would keep every chunk's scores, the full
+    [B, H, Sq, Sk] the chunking exists to avoid.  Values do not change."""
     Sq = q.shape[1]
     chunk = min(chunk, Sq)
-    outs = [
-        _naive_attn(q[:, i:i + chunk], k, v, causal=causal, q_offset=i)
-        for i in range(0, Sq, chunk)
-    ]
+    records = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+
+    def one(i):
+        return _naive_attn(q[:, i:i + chunk], k, v, causal=causal, q_offset=i)
+
+    if records:
+        outs = [checkpoint(one, i, use_reentrant=False) for i in range(0, Sq, chunk)]
+    else:
+        outs = [one(i) for i in range(0, Sq, chunk)]
     return torch.cat(outs, dim=1)
 
 
 def _pallas_attn(q, k, v, causal: bool):
     """[B, S, H, D] activations through the flash kernel as transposed
-    views (the kernel takes strides): no copies in or out."""
+    views (the kernel takes strides): no copies in or out.  Forward only:
+    `ops.flash_attention` raises when autograd would record the call."""
     out = ops.flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal,
     )

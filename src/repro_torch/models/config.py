@@ -74,9 +74,12 @@ class ModelConfig:
     n_vision_tokens: int = 0          # stub patch embeddings prefixed to text
 
     # --- execution knobs -------------------------------------------------------
-    # remat / scan_layers / analysis_unroll are the reference's XLA knobs;
-    # the port keeps them so a configuration carries across, and runs its
-    # layers as a Python loop without rematerialisation whatever they say.
+    # remat: in train mode each layer group runs under
+    # torch.utils.checkpoint ("full": recompute the group in the backward;
+    # "dots": keep its projections' outputs; "none": keep everything), as
+    # the reference's jax.checkpoint; serving ignores it.  scan_layers /
+    # analysis_unroll are the reference's XLA knobs, kept so a configuration
+    # carries across: the port runs its layers as a Python loop.
     dtype: str = "bfloat16"
     remat: str = "full"               # none|full|dots
     attn_impl: str = "chunked"        # naive|chunked (plain q-chunks)|pallas (the CUDA kernels)

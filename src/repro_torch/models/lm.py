@@ -11,7 +11,9 @@ reference's stacked scan groups).  A block holds ``norm1`` and its mixer
 add ``norm2`` and an FFN (dense or MoE by `ModelConfig.layer_is_moe`),
 mLSTM and sLSTM blocks carry their own projections and have neither.
 `lm_forward` runs the prelude blocks, then walks the groups' layer axis in
-a Python loop instead of a scan.
+a Python loop instead of a scan.  In ``train`` mode (`lm_loss`) each layer
+group runs under `torch.utils.checkpoint` as the reference's `_remat`
+says (``cfg.remat``), and autograd gives the backward.
 
 The cache has the same layout: ``{"prelude_{i}": entry, "groups": {"l0":
 entry, ...}}``, an entry being an attention layer's (k, v) [B, cap, Hkv,
@@ -134,13 +136,15 @@ def block_apply(
     kind: str,
     x: torch.Tensor,
     positions: torch.Tensor,
-    mode: str,                        # prefill | decode
+    mode: str,                        # train | prefill | decode
     cache=None,
     cache_len=None,
 ):
-    """Returns (x, new_cache).  In decode a recurrent block's new state is
-    written into ``cache`` in place (as attention writes its K/V), and
-    ``cache`` is returned.  A recurrent mixer runs under the profiler label
+    """Returns (x, new_cache, aux): aux is the FFN's load-balancing loss
+    (0.0 without a MoE FFN).  ``train`` runs the prefill path and keeps
+    no cache (None).  In decode a recurrent block's new state is written
+    into ``cache`` in place (as attention writes its K/V), and ``cache`` is
+    returned.  A recurrent mixer runs under the profiler label
     ``netmcp.<kind>``."""
     h = nn.rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == "attn":
@@ -157,11 +161,14 @@ def block_apply(
                     cache[name].copy_(t)
                 new_cache = cache
             else:
-                y, new_cache = mixer.apply(p[kind], cfg, h, return_state=True)
+                y, new_cache = mixer.apply(p[kind], cfg, h, return_state=mode == "prefill")
+    if mode == "train":
+        new_cache = None
     if not _has_ffn(kind):
-        return x + y, new_cache
+        return x + y, new_cache, 0.0
     x, h2 = _add_norm(x, y, p["norm2"], cfg.norm_eps)
-    return x + mlp.ffn_apply(p["ffn"], cfg, h2), new_cache
+    y2, aux = mlp.ffn_apply(p["ffn"], cfg, h2)
+    return x + y2, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -199,6 +206,44 @@ def _embed_tokens(p: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     return x
 
 
+def _matmul_outputs_saved(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: keep the outputs of
+    plain 2-D matrix products (the projections, `aten.mm`), recompute the
+    rest, batched products (the attention scores) included: the
+    reference's `dots_with_no_batch_dims_saveable`."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op == torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn: Callable, cfg: ModelConfig) -> Callable:
+    """``fn`` under `torch.utils.checkpoint` (non-reentrant) when autograd
+    records, as the reference's `_remat` wraps a layer group in
+    `jax.checkpoint`: ``remat="full"`` keeps only the group's input and
+    recomputes the group in the backward; ``"dots"`` also keeps its
+    projections' outputs (`_matmul_outputs_saved`, PyTorch's selective
+    checkpointing); ``"none"`` keeps every activation.  Values do not
+    change, only memory."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        extra = {}
+        if cfg.remat == "dots":
+            extra["context_fn"] = lambda: create_selective_checkpoint_contexts(
+                _matmul_outputs_saved)
+        return checkpoint(fn, *args, use_reentrant=False, **extra)
+
+    return wrapped
+
+
 def lm_forward(
     p: dict,
     cfg: ModelConfig,
@@ -207,14 +252,15 @@ def lm_forward(
     cache: Optional[dict] = None,
     cache_len=None,
 ):
-    """Returns (logits, new_cache): the last position's logits in
-    ``prefill`` (with the prompt's cache: an attention layer's k/v [B, S,
-    Hkv, hd], a recurrent block's state after the prompt, each with a
-    leading [n_layers] axis in the groups; S counts a VLM's patches), the
-    new token's in ``decode`` (the cache updated in place: K/V at
-    ``cache_len``, the states whole).  Training, the reference's third
-    mode, is not ported yet."""
-    if mode not in ("prefill", "decode"):
+    """``train``: (logits [B, V + S, vocab] at every position, aux: the
+    load-balancing losses summed over the prelude and every group, f32),
+    no cache built, each layer group under `_remat`.  ``prefill``: (the
+    last position's logits, the prompt's cache: an attention layer's k/v
+    [B, S, Hkv, hd], a recurrent block's state after the prompt, each with
+    a leading [n_layers] axis in the groups; S counts a VLM's patches).
+    ``decode``: (the new token's logits, the cache updated in place: K/V
+    at ``cache_len``, the states whole)."""
+    if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"lm_forward: unknown mode {mode!r}")
     embed = p["embed"]
     if mode == "decode":
@@ -223,23 +269,41 @@ def lm_forward(
         x = _embed_tokens(p, cfg, batch)                   # [B, V + S, d]
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     kinds = list(cfg.block_pattern)
+    auxes = []
     prelude_kv = {}
     for i in range(cfg.first_k_dense):
         name = f"prelude_{i}"
-        x, c_new = block_apply(p[name], cfg, cfg.layer_kinds()[i], x, positions, mode,
-                               None if cache is None else cache[name], cache_len)
-        prelude_kv[name] = c_new
+        x, prelude_kv[name], aux = block_apply(p[name], cfg, cfg.layer_kinds()[i], x,
+                                               positions, mode,
+                                               None if cache is None else cache[name],
+                                               cache_len)
+        auxes.append(aux)
+
+    def group(x, gp, gc):
+        """One repetition of the block pattern: (x, its blocks' new cache
+        entries, their summed aux)."""
+        aux_g = 0.0
+        entries = {}
+        for j, kind in enumerate(kinds):
+            x, entries[f"l{j}"], aux = block_apply(
+                gp[f"l{j}"], cfg, kind, x, positions, mode,
+                None if gc is None else gc[f"l{j}"], cache_len)
+            if mode == "train":
+                aux_g = aux_g + aux
+        return x, entries, aux_g
+
     nG = _n_groups(cfg)
     layers = _unstack(p["groups"], nG)
     layer_cache = None if cache is None else _unstack(cache["groups"], nG)
     prefill_cache = {f"l{j}": [] for j in range(len(kinds))}
+    run_group = _remat(group, cfg) if mode == "train" else group
     for g in range(nG):
-        for j, kind in enumerate(kinds):
-            entry = None if layer_cache is None else layer_cache[g][f"l{j}"]
-            x, c_new = block_apply(layers[g][f"l{j}"], cfg, kind, x, positions, mode, entry,
-                                   cache_len)
-            if mode == "prefill":
-                prefill_cache[f"l{j}"].append(c_new)
+        x, entries, aux_g = run_group(x, layers[g],
+                                      None if layer_cache is None else layer_cache[g])
+        auxes.append(aux_g)
+        if mode == "prefill":
+            for name, c_new in entries.items():
+                prefill_cache[name].append(c_new)
 
     x = nn.rms_norm(x, p["final_norm"], cfg.norm_eps)
     if mode == "prefill":
@@ -252,7 +316,23 @@ def lm_forward(
     logits = nn.dense(x, head)
     if cfg.logits_f32:
         logits = logits.to(torch.float32)
+    if mode == "train":
+        return logits, sum(auxes, torch.zeros((), dtype=torch.float32, device=x.device))
     return logits, new_cache
+
+
+def lm_loss(p: dict, cfg: ModelConfig, batch: dict):
+    """(CE + aux, {"ce", "aux", "n_tokens"}) over ``batch`` = {"tokens" [B,
+    S], "labels" [B, S] (-100 ignored)}; a VLM's batch adds "patches" [B,
+    V, d], whose positions get label -100."""
+    logits, aux = lm_forward(p, cfg, batch, mode="train")
+    labels = torch.as_tensor(batch["labels"], device=logits.device)
+    if cfg.n_vision_tokens:
+        ignore = torch.full((labels.shape[0], cfg.n_vision_tokens), -100, dtype=labels.dtype,
+                            device=labels.device)
+        labels = torch.cat([ignore, labels], dim=1)
+    ce, n = nn.softmax_cross_entropy(logits, labels)
+    return ce + aux, {"ce": ce, "aux": aux, "n_tokens": n}
 
 
 # ---------------------------------------------------------------------------

@@ -136,8 +136,8 @@ def moe_ffn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor):
 
     The reference runs the expert FFN in capacity chunks under
     `jax.checkpoint` to bound its training memory; the chunks are
-    independent rows and serving keeps no activations, so the port runs all
-    of C in one product per weight.  The combine adds each token's K
+    independent rows, so the port runs all of C in one product per weight
+    (in training, the layer group's checkpoint bounds what is kept).  The combine adds each token's K
     contributions ``yb[slot] * w_keep`` in the model dtype, in the row's
     sorted order (the order of the reference's scatter-add), through
     gathers: no atomics, so a result is the same from run to run.  The
@@ -172,10 +172,10 @@ def ffn_init(ctx: nn.InitCtx, cfg: ModelConfig, layer_idx: int, n_layers: int) -
     return {"dense": dense_ffn_init(ctx, cfg, cfg.ffn_hidden(layer_idx), n_layers)}
 
 
-def ffn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """The layer's FFN output.  The MoE load-balancing loss is a training
-    term (training is not ported), so it is dropped here; `moe_ffn_apply`
-    returns it."""
+def ffn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor):
+    """(the layer's FFN output, its load-balancing aux loss), as the
+    reference: the MoE's f32 scalar, or 0.0 for a dense FFN (a Python
+    float, so serving pays no device op for it)."""
     if "moe" in p:
-        return moe_ffn_apply(p["moe"], cfg, x)[0]
-    return dense_ffn_apply(p["dense"], x)
+        return moe_ffn_apply(p["moe"], cfg, x)
+    return dense_ffn_apply(p["dense"], x), 0.0

@@ -17,8 +17,10 @@ Parameters are the reference's tree: ``embed``, ``enc_blocks`` and
 self-attention K/V [B, cap, Hkv, hd] and the cross-attention K/V [B,
 n_audio_frames, Hkv, hd], projected once from the encoder's output at
 prefill.  Decode writes the self K/V in place and reads the cross K/V
-whole.  Training, the reference's third mode, waits for `ROADMAP.md` queue
-1, item 11 (d).
+whole.  ``train`` mode (`whisper_loss`) runs the encoder over the frames
+and the decoder over every position, each decoder block under the same
+`torch.utils.checkpoint` as `lm._remat` (the reference checkpoints the
+decoder blocks, not the encoder), and builds no cache.
 """
 from __future__ import annotations
 
@@ -131,24 +133,27 @@ def whisper_forward(
     cache: Optional[dict] = None,
     cache_len=None,
 ):
-    """prefill: batch = {"frames" [B, F, d], "tokens" [B, S]} -> (the last
-    position's logits [B, 1, V], the cache of the prompt: self K/V [B, S,
-    ...] and cross K/V [B, F, ...] with a leading layer axis); decode: batch
-    = {"tokens" [B, 1]} at position ``cache_len`` -> (logits, the cache
-    updated in place)."""
-    if mode == "train":
-        raise NotImplementedError("whisper_forward: training is not ported yet "
-                                  "(ROADMAP.md queue 1, item 11 (d))")
-    if mode not in ("prefill", "decode"):
+    """train: batch = {"frames" [B, F, d], "tokens" [B, S]} -> (logits [B,
+    S, V] at every position, aux f32 0: whisper has no MoE); prefill: the
+    same batch -> (the last position's logits [B, 1, V], the cache of the
+    prompt: self K/V [B, S, ...] and cross K/V [B, F, ...] with a leading
+    layer axis); decode: batch = {"tokens" [B, 1]} at position
+    ``cache_len`` -> (logits, the cache updated in place)."""
+    if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"whisper_forward: unknown mode {mode!r}")
     embed = p["embed"]
     x = embed[torch.as_tensor(batch["tokens"], device=embed.device).long()]   # [B, S, d]
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    enc_out = encode(p, cfg, batch["frames"]) if mode == "prefill" else None
+    enc_out = None if mode == "decode" else encode(p, cfg, batch["frames"])
     n = cfg.n_layers
     layer_cache = None if cache is None else lm._unstack(cache["dec"], n)
+    train_block = lm._remat(
+        lambda x_, bp: _dec_block(bp, cfg, x_, positions, enc_out, mode, None, None)[0], cfg)
     entries = []
     for g, bp in enumerate(lm._unstack(p["dec_blocks"], n)):
+        if mode == "train":
+            x = train_block(x, bp)
+            continue
         x, kv = _dec_block(bp, cfg, x, positions, enc_out, mode,
                            None if layer_cache is None else layer_cache[g], cache_len)
         entries.append(kv)
@@ -161,6 +166,8 @@ def whisper_forward(
     logits = nn.dense(x, p["head"])
     if cfg.logits_f32:
         logits = logits.to(torch.float32)
+    if mode == "train":
+        return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
     return logits, new_cache
 
 
@@ -176,3 +183,11 @@ def whisper_init_cache(cfg: ModelConfig, batch: int, cap: int, device) -> dict:
 def whisper_cache_axes(cfg: ModelConfig) -> dict:
     names = ("layers",) + attn.CACHE_AXES
     return {"dec": {"self": (names, names), "cross": (names, names)}}
+
+
+def whisper_loss(p: dict, cfg: ModelConfig, batch: dict):
+    """(CE, {"ce", "n_tokens"}) over ``batch`` = {"frames", "tokens",
+    "labels" (-100 ignored)}; no aux term, as the reference."""
+    logits, _ = whisper_forward(p, cfg, batch, mode="train")
+    ce, n = nn.softmax_cross_entropy(logits, batch["labels"])
+    return ce, {"ce": ce, "n_tokens": n}

@@ -4,7 +4,8 @@ Parameters are plain nested dicts of tensors, as the reference's are
 nested dicts of arrays.  The reference's logical axis names exist for its
 mesh sharding (`repro.nn.sharding`); one card needs none, so the port's
 initialisers return bare tensors, and `fsdp_gather` / `maybe_constrain`,
-which are no-ops outside a mesh, have no twin.
+which are no-ops outside a mesh, have no twin.  `softmax_cross_entropy` is
+the training loss, differentiable by autograd.
 
 The initialisers draw from the `torch.Generator` of an `InitCtx`, on its
 device, in the reference's distributions (f32 normal draws scaled, then
@@ -98,3 +99,25 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 def swiglu(x, w_gate, w_up, w_down):
     return dense(silu(dense(x, w_gate)) * dense(x, w_up), w_down)
+
+
+def softmax_cross_entropy(
+    logits: torch.Tensor,      # [..., V] (any float dtype; upcast inside)
+    labels: torch.Tensor,      # [...] integer, -100 = ignore
+    z_loss: float = 0.0,
+) -> tuple:
+    """Mean CE over non-ignored positions, f32 logsumexp; returns (loss,
+    n_valid) with n_valid = max(#valid, 1), so an all-ignored batch gives
+    0 rather than NaN.  ``z_loss`` adds z_loss * lse**2 per position."""
+    labels = torch.as_tensor(labels, device=logits.device)
+    valid = labels != -100
+    safe = torch.where(valid, labels, torch.zeros((), dtype=labels.dtype,
+                                                  device=labels.device)).long()
+    logits32 = logits.to(torch.float32)
+    lse = torch.logsumexp(logits32, dim=-1)
+    gold = torch.gather(logits32, -1, safe[..., None])[..., 0]
+    ce = lse - gold
+    if z_loss:
+        ce = ce + z_loss * lse ** 2
+    n = torch.clamp(valid.sum(), min=1)
+    return torch.where(valid, ce, torch.zeros((), dtype=ce.dtype, device=ce.device)).sum() / n, n

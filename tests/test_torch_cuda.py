@@ -1202,3 +1202,51 @@ def test_multimodal_model_kernel_path_matches_plain_path(cuda, arch):
         eng.drain()
         out.append([r.generated for r in rs])
     assert out[0] == out[1]
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One train step of the reduced internlm2 in f32 (the same weights,
+    drawn on the CPU, and the same batch): loss, grad norm and every
+    updated parameter and moment on the card within 1e-4 of the CPU's, and
+    the step equal to 1 on both."""
+    from repro_torch import configs, tree
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_step import make_train_step
+
+    cfg = dataclasses.replace(configs.get_reduced("internlm2-1.8b"), dtype="float32")
+    model, opt = get_model(cfg), AdamW(lr=1e-3, warmup_steps=2)
+    out = {}
+    for dev in ("cpu", cuda):
+        params = tree.map(lambda t: t.to(dev), model.init_params(seed=0, device="cpu"))
+        batch = {k: v.to(dev) for k, v in make_batch(DataConfig(cfg.vocab_size, 32, 2), 0).items()}
+        out[str(dev)] = make_train_step(model, opt)(params, opt.init(params), batch)
+    (pc, sc, mc), (pg, sg, mg) = out["cpu"], out[str(cuda)]
+    for k in ("loss", "grad_norm", "ce"):
+        np.testing.assert_allclose(float(mg[k]), float(mc[k]), rtol=1e-4)
+    for a, b in zip(tree.leaves((pg, sg)), tree.leaves((pc, sc))):
+        assert a.device.type == "cuda"
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+def test_flash_kernel_refuses_grad_on_card(cuda):
+    """Under grad, a flash or decode call on the card whose operands require
+    grad raises instead of returning a result without a gradient, and
+    launches nothing; under `torch.no_grad()` it launches."""
+    q = torch.randn(1, 4, 64, 64, device=cuda, requires_grad=True)
+    k = torch.randn(1, 2, 64, 64, device=cuda)
+    v = torch.randn(1, 2, 64, 64, device=cuda)
+    ops.reset_launches()
+    with pytest.raises(RuntimeError, match="forward only"):
+        ops.flash_attention(q, k, v)
+    with pytest.raises(RuntimeError, match="forward only"):
+        ops.decode_attention(q[:, :, 0], k, v, torch.full((1,), 64, device=cuda))
+    assert ops.launch_counts()["flash_attention"] == 0
+    assert ops.launch_counts()["decode_attention"] == 0
+    with torch.no_grad():
+        ops.flash_attention(q, k, v)
+    assert ops.launch_counts()["flash_attention"] == 1

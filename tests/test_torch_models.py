@@ -197,7 +197,7 @@ def test_dense_ffn_matches_reference(dtype):
     rng = np.random.default_rng(4)
     jx, x = _x(rng, (2, 9, cfg.d_model), dtype)
     jy, _ = jmlp.ffn_apply(_layer0(jp["groups"]["l0"]["ffn"]), jcfg, jx)
-    _close(mlp.ffn_apply(_layer0(p["groups"]["l0"]["ffn"]), cfg, x), jy, dtype, "ffn")
+    _close(mlp.ffn_apply(_layer0(p["groups"]["l0"]["ffn"]), cfg, x)[0], jy, dtype, "ffn")
 
 
 @pytest.mark.parametrize("impl", IMPLS)

@@ -220,7 +220,7 @@ def test_moe_ffn_apply_matches_reference(case, dtype):
     tol = 1e-5 if dtype == "float32" else 2e-2
     np.testing.assert_allclose(_np(y), _np(jy), rtol=tol, atol=tol)
     np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5, atol=1e-6)
-    torch.testing.assert_close(mlp.ffn_apply({"moe": p}, cfg, x), y, rtol=0, atol=0)
+    torch.testing.assert_close(mlp.ffn_apply({"moe": p}, cfg, x), (y, aux), rtol=0, atol=0)
 
 
 _MODELS: dict = {}

@@ -314,17 +314,15 @@ _BY_DESIGN = {
     "kernels.select_fuse": {"NEG", "QUERY_TILE"},
     # mesh sharding helpers (no-ops outside a mesh) and the Annotated-tree
     # helpers (the port's initialisers return bare tensors, so whisper
-    # stacks its blocks without `stack_init`); lm_loss, whisper_loss and
-    # softmax_cross_entropy wait for training (ROADMAP.md queue 1, item 11
-    # (d)); no reference model calls layer_norm
+    # stacks its blocks without `stack_init`); no reference model calls
+    # layer_norm
     "models.attention": {"fsdp_gather", "maybe_constrain"},
     "models.mamba": {"fsdp_gather"},
     "models.mlp": {"fsdp_gather"},
     "models.xlstm": {"fsdp_gather"},
-    "models.lm": {"amap", "stack_init", "fsdp_gather", "maybe_constrain", "lm_loss"},
-    "models.whisper": {"amap", "stack_init", "fsdp_gather", "maybe_constrain", "whisper_loss"},
-    "nn.core": {"Annotated", "is_annotated", "unzip", "zip_trees", "layer_norm",
-                "softmax_cross_entropy"},
+    "models.lm": {"amap", "stack_init", "fsdp_gather", "maybe_constrain"},
+    "models.whisper": {"amap", "stack_init", "fsdp_gather", "maybe_constrain"},
+    "nn.core": {"Annotated", "is_annotated", "unzip", "zip_trees", "layer_norm"},
     # the JAX profiler switch: the port's `record_function` annotations are
     # always on
     "obs": {"enable_jax_annotations"},

@@ -253,12 +253,20 @@ def test_prefill_and_decode_steps_match_reference(dtype, impl, monkeypatch):
 
 
 def test_forward_modes_and_cache_layout():
-    _, cfg = _pair("float32")
+    jcfg0, cfg = _pair("float32")
     m = get_model(cfg)
-    p = _params("float32")[1]
-    with pytest.raises(NotImplementedError, match="11 \\(d\\)"):
-        whisper.whisper_forward(p, cfg, {"tokens": torch.zeros((1, 2), dtype=torch.long)},
-                                "train")
+    jp, p = _params("float32")
+    rng = np.random.default_rng(6)
+    frames = rng.standard_normal((2, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 9)).astype(np.int32)
+    want = jwhisper.whisper_forward(jp, jcfg0, {"frames": jnp.asarray(frames),
+                                                "tokens": jnp.asarray(tokens)}, "train")[0]
+    got, aux = whisper.whisper_forward(p, cfg, {"frames": torch.from_numpy(frames),
+                                                "tokens": torch.from_numpy(tokens)}, "train")
+    assert got.shape == (2, 9, cfg.padded_vocab) and float(aux) == 0.0
+    _close(got, want, "float32", "train logits at every position", logits=True)
+    with pytest.raises(ValueError, match="unknown mode"):
+        whisper.whisper_forward(p, cfg, {"tokens": torch.from_numpy(tokens)}, "score")
     cache = m.init_cache(3, 20, device="cpu")
     L, F, H, hd = cfg.n_layers, cfg.n_audio_frames, cfg.n_kv_heads, cfg.resolved_head_dim
     assert cache["dec"]["self"][0].shape == (L, 3, 20, H, hd)
