@@ -224,6 +224,25 @@ depth.
    ``train_loop`` checkpointing every 3 steps under ``build/``, its restart
    running only the remaining steps, and a state saved on the card restored
    bit for bit;
+3l. the dry-run (``repro_torch.launch.dryrun``, every step on meta
+   tensors): (a) ``run_cell`` for every cell of ``configs.cells()`` (32) on
+   the 16 x 16 mesh with the roofline and on 2 x 16 x 16 as the build gate,
+   every cell ok, ``torch.cuda.memory_allocated()`` and the launch counts
+   unchanged, one line a cell; (b) phase 3k (a)'s step (internlm2-1.8b, 4 x
+   2048, bf16, remat full, chunked attention, AdamW) on a 1 x 1 mesh: its
+   executed operations by dtype within 1 % of 3k's count of the work the
+   step does and of the products one real step ran on the card (counted by
+   ``torch.utils.flop_counter``, to which 3k holds its count too), its
+   predicted peak within 15 % of 3k (a)'s measured peak; (c)
+   a one-card cut of decode_32k (internlm2-1.8b, 8 of 128 sequences,
+   ``cache_len`` 32767 of a 32768-row cache, ``attn_impl="pallas"``): the
+   dry-run's parameter and cache bytes equal to the real tensors', one real
+   ``decode_step`` with the counters set to 0 launching the decode kernel
+   24 times (the dry-run none), the predicted peak within 15 % of the
+   measured one, and the decode kernel at [8, 32768, 8, 128] (G = 2, the
+   cache's strided layout, full and ragged lengths) within rtol = atol =
+   2e-2 of ``decode_ref``, on operands whose outputs are O(1) (v with block
+   means, ``decode_check_operands``; std at least 10 x the tolerance);
 4. times: each kernel's median over CUDA-event-timed launches beside its
    plain version, one library call where there is one, and its bound; the
    end-to-end ``route_texts`` time per batch on both paths; a profile of one
@@ -343,6 +362,39 @@ GATEWAY_TEXTS = (
     "high throughput text generation for a batch of prompts",
     "general purpose chat completion for a customer question",
 )
+
+
+# Phase 3l (c) holds the decode kernel past a 2048-row cache, where it cuts
+# each (sequence, kv head) into 8 splits.  With q, k, v all standard normal
+# the softmax over 32768 rows is nearly flat, so each output is a mean of
+# that many rows (std ~0.009, under the 2e-2 atol) and a kernel that lost a
+# split would pass.  So v carries a mean of std DECODE_MEAN_STD per
+# (sequence, block of DECODE_BLOCK rows, kv head, dim): an output is then a
+# weighted mean of 128 block means (std ~0.35), and a split dropped or read
+# twice moves it by about a split's mean over 8 (~0.1).
+# tools/decode_check_faults.py plants such faults in copies of the kernel and
+# shows that this check fails on each (PERF.md).
+DECODE_BLOCK, DECODE_MEAN_STD = 256, 4.0
+
+
+def decode_check_operands(B, S, Hkv, Hq, D, dev, seed, mean_std=DECODE_MEAN_STD):
+    """bf16 q [B, Hq, D] and k, v [B, Hkv, S, D] as views of caches in the
+    model's [B, S, Hkv, D] layout, drawn from ``seed``; v with its block
+    means (none when ``mean_std`` is 0)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, Hq, D), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, S, Hkv, D), generator=g, device=dev).to(torch.bfloat16)
+    mean = torch.randn((B, -(-S // DECODE_BLOCK), Hkv, D), generator=g, device=dev) * mean_std
+    v = torch.randn((B, S, Hkv, D), generator=g, device=dev)
+    v = (v + mean.repeat_interleave(DECODE_BLOCK, dim=1)[:, :S]).to(torch.bfloat16)
+    return q, k.transpose(1, 2), v.transpose(1, 2)
+
+
+def decode_check_lengths(B, S):
+    """Phase 3l (c)'s two sets of lengths: every row valid, then ragged."""
+    return [S] * B, [max(1, S - (S * i) // B - i) for i in range(B)]
 
 
 def fail(msg: str) -> None:
@@ -2653,6 +2705,9 @@ def main(rehearse: bool) -> None:
         f"{tr_cfg.d_ff}, vocab {tr_cfg.padded_vocab}, bf16, remat {tr_cfg.remat}, attention "
         f"{tr_cfg.attn_impl} (chunk {tr_cfg.attn_chunk}); train_loop: {n_tr} steps of "
         f"{B_tr} x {S_tr} tokens, AdamW(lr=1e-3, warmup_steps=20), 4 pods, failures injected")
+    # what the script already holds on the card (earlier phases' fleets and
+    # windows): 3l (b) holds the dry-run's peak to the training run's above it
+    held_tr = torch.cuda.memory_allocated() / 2**30 if dev.type == "cuda" else 0.0
     ops.reset_launches()                       # phase 3k (a)'s count starts here
     records = []
     t0 = time.perf_counter()
@@ -2697,7 +2752,7 @@ def main(rehearse: bool) -> None:
         f"{statistics.median(secs):.3f} s, {tok_tr / statistics.median(secs):.0f} tokens/s); "
         f"healthy pods by step {[r['healthy'] for r in records]}; QoS launches {ka['qos_scores']}"
         f", kernel within {q_err:.3g} of the plain scores; peak device memory {peak_tr:.3f} GiB "
-        f"[{smi_tag}]")
+        f"({peak_tr - held_tr:.3f} above the {held_tr:.3f} GiB held before) [{smi_tag}]")
 
     # the step's bound, from the work the function needs: the bf16 matmuls
     # of the layers and the head 3 times (forward, 2 in backward), and the
@@ -2714,8 +2769,14 @@ def main(rehearse: bool) -> None:
     attn_sq = tr_cfg.n_layers * 2 * 2 * B_tr * nq_ * S_tr * S_tr * hd_   # one full-square pass
     bf16_ops = tok_tr * 3 * (tr_cfg.n_layers * layer_mm + head_mm)
     f32_ops = 3 * attn_sq // 2
-    bf16_done = bf16_ops + tok_tr * tr_cfg.n_layers * layer_mm
-    f32_done = 5 * attn_sq
+    # what the step does: the remat forward too, but a recompute stops at
+    # the last tensor the backward needs (torch.utils.checkpoint's early
+    # stop), so each layer's ends before its down projection and each
+    # attention chunk's before its P V product (half its square): the
+    # bf16 products 3 times and the layers' but the down projection once
+    # more, the f32 squares forward, recomputed, half again and 2 in backward
+    bf16_done = bf16_ops + tok_tr * tr_cfg.n_layers * (layer_mm - 2 * d_ * tr_cfg.d_ff)
+    f32_done = 9 * attn_sq // 2
     n_tr_par = tr_cfg.param_counts()["total"] + (1 + (not tr_cfg.tie_embeddings)) * \
         (tr_cfg.padded_vocab - tr_cfg.vocab_size) * d_
     bytes_tr = n_tr_par * (2 + 2 + 8) * 2
@@ -2730,8 +2791,9 @@ def main(rehearse: bool) -> None:
         f"{1e3 * t_bytes:.1f} ms) against the median step {1e3 * med_tr:.1f} ms "
         f"({med_tr / bound_tr[0]:.2f} x the bound)")
     log(f"phase 3k (a): recompute and masked work over the bound: the step does "
-        f"{bf16_done / 1e12:.1f} TFLOP bf16 (the remat forward) + {f32_done / 1e12:.1f} TFLOP "
-        f"f32 (5 full-square attention passes), {1e3 * t_done:.1f} ms at peak, "
+        f"{bf16_done / 1e12:.1f} TFLOP bf16 (the remat forward but its down projections) + "
+        f"{f32_done / 1e12:.1f} TFLOP f32 (4.5 full-square attention passes), "
+        f"{1e3 * t_done:.1f} ms at peak, "
         f"{1e3 * (t_done - t_ops):.1f} ms more than the bound")
 
     # one step profiled, then the eval steps, on fresh weights from the same seed
@@ -2843,6 +2905,48 @@ def main(rehearse: bool) -> None:
             f"{afb:.1f} ms, so {att_step:.1f} ms a step over {tr_cfg.n_layers} layers "
             f"({100 * att_step / med_ms:.1f} % of it) [{smi_tag}]")
         del xh, head_w, qa, ka_, va
+    # the products one real step runs, counted on the device by
+    # torch.utils.flop_counter, each product's operand dtype noted beside
+    # it: the count of what "the step does" above is held to it here, and
+    # 3l (b) holds the dry-run to it
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    class OperandDtypes(TorchDispatchMode):
+        """op -> the dtypes of the tensors it was given."""
+
+        def __init__(self):
+            super().__init__()
+            self.seen: dict = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.setdefault(func._overloadpacket, set()).update(
+                a.dtype for a in args if isinstance(a, torch.Tensor))
+            return func(*args, **(kwargs or {}))
+
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as flop_mode, OperandDtypes() as dtypes_seen:
+        tr_step(tr_params, tr_state, tr_batch)
+        sync()
+    n_before_eval += 1
+    ran = {"bfloat16": 0, "float32": 0}
+    for op_, n_ in flop_mode.get_flop_counts()["Global"].items():
+        dts = dtypes_seen.seen.get(op_, set())
+        if len(dts) != 1 or str(next(iter(dts))).replace("torch.", "") not in ran:
+            fail(f"phase 3k (a): {op_} ran {n_} operations on operands of dtypes {dts}")
+        ran[str(next(iter(dts))).replace("torch.", "")] += n_
+    rel_ran = {"bfloat16": bf16_done / max(ran["bfloat16"], 1) - 1,
+               "float32": f32_done / max(ran["float32"], 1) - 1}
+    if any(abs(x) > 0.01 for x in rel_ran.values()):
+        failures_3k.append(f"phase 3k (a): the step ran {ran} operations, counted on {dev}; "
+                           f"the count of what it does says bf16 {bf16_done}, f32 {f32_done}")
+    log(f"phase 3k (a): one step counted on {dev} (torch.utils.flop_counter, "
+        f"{time.perf_counter() - t0:.1f} s): {ran['bfloat16'] / 1e12:.3f} TFLOP bf16, "
+        f"{ran['float32'] / 1e12:.3f} TFLOP f32 in "
+        + ", ".join(f"{op_} {n_ / 1e12:.3f}"
+                    for op_, n_ in flop_mode.get_flop_counts()["Global"].items())
+        + f"; the count of what the step does {100 * rel_ran['bfloat16']:+.3f} % (bf16), "
+        f"{100 * rel_ran['float32']:+.3f} % (f32) against it")
     ev_plain = float(make_eval_step(tr_model)(tr_params, tr_batch)["loss"])
     flash_model = get_model(dataclasses.replace(tr_cfg, attn_impl="pallas"))
     # the eval step keeps copies of the inputs and output of its flash calls
@@ -2906,6 +3010,162 @@ def main(rehearse: bool) -> None:
     log(f"phase 3k: {time.perf_counter() - t_3k:.1f} s in all; launches {launches_3k}")
     if failures_3k:
         fail("phase 3k: " + " | ".join(failures_3k))
+
+    # ----------------------------------------------------------------- 3l
+    # The dry-run on meta tensors (see the docstring): (a) the whole grid on
+    # both production meshes, (b) phase 3k (a)'s step on one card against
+    # 3k's count and measured peak, (c) a one-card cut of decode_32k
+    # against a real decode step through the decode kernel.
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import Shape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    t_3l = time.perf_counter()
+    failures_3l = []
+    launches_3l = dict.fromkeys(ops.launch_counts(), 0)
+    one_card = make_debug_mesh(1, 1)
+
+    def allocated():
+        return torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+
+    def dry(*args, **kw):
+        """``dryrun.run_cell``, held to allocate nothing and launch nothing."""
+        mem0, lc0 = allocated(), ops.launch_counts()
+        r = dryrun.run_cell(*args, verbose=False, **kw)
+        if allocated() != mem0 or ops.launch_counts() != lc0:
+            fail(f"phase 3l: the dry-run of {args[:2]} allocated "
+                 f"{allocated() - mem0} bytes on the card or launched kernels "
+                 f"({ops.launch_counts()} against {lc0})")
+        if not r["ok"]:
+            fail(f"phase 3l: dry-run of {args[:2]} failed: {r.get('traceback')}")
+        return r
+
+    # (a) every cell: 16 x 16 with the roofline, 2 x 16 x 16 the build gate
+    for multi_pod in (False, True):
+        t0 = time.perf_counter()
+        for arch, shape_name in lm_configs.cells():
+            r = dry(arch, shape_name, multi_pod=multi_pod, with_roofline=not multi_pod)
+            m = r["memory"]
+            if multi_pod:
+                log(f"phase 3l (a): {arch} {shape_name} {r['mesh']} {r['layout']} "
+                    f"({r['attn_impl']}): ok, params {m['params'] / 2**30:.3f} GiB/device, "
+                    f"optimizer {m['opt_state'] / 2**30:.3f}, cache {m['cache'] / 2**30:.3f}")
+            else:
+                ro = r["roofline"]
+                log(f"phase 3l (a): {arch} {shape_name} {r['mesh']} {r['layout']} "
+                    f"({r['attn_impl']}): peak {m['peak'] / 2**30:.2f} GiB/device, compute "
+                    f"{1e3 * ro['t_compute_s']:.2f} ms, memory {1e3 * ro['t_memory_s']:.2f} ms, "
+                    f"collective {1e3 * ro['t_collective_s']:.2f} ms, {ro['bottleneck']}")
+        log(f"phase 3l (a): {len(lm_configs.cells())} cells ok on "
+            f"{'2x16x16 (build gate)' if multi_pod else '16x16 (roofline)'} in "
+            f"{time.perf_counter() - t0:.1f} s (host clock); no card memory, no launch")
+
+    # (b) phase 3k (a)'s step on one card
+    t0 = time.perf_counter()
+    rb = dry(tr_cfg.name, Shape("train_3k_a", S_tr, B_tr, "train"), cfg=tr_cfg, mesh=one_card)
+    ops_b = rb["roofline"]["flops_by_dtype_per_device"]
+    rel = {"bfloat16": ops_b.get("bfloat16", 0.0) / bf16_done - 1,
+           "float32": ops_b.get("float32", 0.0) / f32_done - 1}
+    rel_dev = {k: ops_b.get(k, 0.0) / max(ran[k], 1) - 1 for k in ran}
+    if any(abs(x) > 0.01 for x in (*rel.values(), *rel_dev.values())):
+        failures_3l.append(f"phase 3l (b): executed operations {ops_b} against 3k's count "
+                           f"bf16 {bf16_done}, f32 {f32_done}, and the step's on {dev} {ran}")
+    peak_b, run_tr = rb["memory"]["peak"] / 2**30, peak_tr - held_tr
+    if dev.type == "cuda" and not abs(peak_b / run_tr - 1) <= 0.15:
+        failures_3l.append(f"phase 3l (b): predicted peak {peak_b:.3f} GiB against the measured "
+                           f"{run_tr:.3f} GiB")
+    log(f"phase 3l (b): {tr_cfg.name} {B_tr} x {S_tr} train step on 1x1: executed "
+        f"{ops_b.get('bfloat16', 0.0) / 1e12:.3f} TFLOP bf16 ({100 * rel['bfloat16']:+.3f} % "
+        f"against 3k's {bf16_done / 1e12:.3f}) + {ops_b.get('float32', 0.0) / 1e12:.3f} TFLOP "
+        f"f32 ({100 * rel['float32']:+.3f} % against {f32_done / 1e12:.3f}); against the "
+        f"step counted on {dev} {100 * rel_dev['bfloat16']:+.3f} % (bf16), "
+        f"{100 * rel_dev['float32']:+.3f} % (f32); predicted peak "
+        f"{peak_b:.3f} GiB against 3k (a)'s measured {run_tr:.3f} GiB (its peak {peak_tr:.3f} "
+        f"less the {held_tr:.3f} GiB held before) [{smi_tag}]; roofline "
+        f"{1e3 * rb['roofline']['step_time_s']:.1f} ms ({rb['roofline']['bottleneck']}); dry-run "
+        f"{time.perf_counter() - t0:.1f} s (host clock)")
+
+    # (c) a one-card cut of decode_32k through the decode kernel
+    dc_cfg = dataclasses.replace(lm_configs.get_reduced("internlm2-1.8b") if rehearse
+                                 else lm_configs.get_config("internlm2-1.8b"), dtype="bfloat16",
+                                 attn_impl="pallas")
+    B_dc, S_dc = (2, 256) if rehearse else (8, 32768)
+    rc = dry(dc_cfg.name, Shape("decode_32k_cut", S_dc, B_dc, "decode"), cfg=dc_cfg,
+             mesh=one_card)
+    free_card()
+    held_c = allocated() / 2**30
+    dc_model = get_model(dc_cfg)
+    dc_params = dc_model.init_params(seed=0, device=dev)
+    dc_cache = dc_model.init_cache(B_dc, S_dc, device=dev)
+
+    def nbytes(t_):
+        return sum(x.numel() * x.element_size() for x in tree_util.leaves(t_))
+
+    real = {"params": nbytes(dc_params), "cache": nbytes(dc_cache)}
+    if any(rc["memory"][k] != v for k, v in real.items()):
+        failures_3l.append(f"phase 3l (c): dry-run bytes {rc['memory']} against the real {real}")
+    dc_tok = torch.as_tensor(np.random.default_rng(9).integers(0, dc_cfg.vocab_size, (B_dc, 1)),
+                             device=dev)
+    sync()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                       # phase 3l (c)'s count starts here
+    dc_logits, _ = dc_model.decode_step(dc_params, dc_cache, dc_tok, S_dc - 1)
+    sync()
+    kc = ops.launch_counts()                   # ... and is read here
+    peak_c = (torch.cuda.max_memory_allocated() / 2**30 - held_c) if dev.type == "cuda" else 0.0
+    launches_3l["decode_attention"] += kc["decode_attention"]
+    dry_calls = rc["kernels"].get("decode_attention", {}).get("calls", 0)
+    if not bool(torch.isfinite(dc_logits).all()) or dc_logits.shape != (B_dc, 1,
+                                                                         dc_cfg.padded_vocab):
+        fail(f"phase 3l (c): decode logits {tuple(dc_logits.shape)} not finite")
+    if dry_calls != dc_cfg.n_layers:
+        failures_3l.append(f"phase 3l (c): the dry-run reckons {dry_calls} decode calls")
+    if not rehearse and (kc["decode_attention"] != dc_cfg.n_layers
+                         or sum(kc.values()) != kc["decode_attention"]):
+        fail(f"phase 3l (c): the decode step launched {kc}, expected {dc_cfg.n_layers} decode")
+    peak_cd = rc["memory"]["peak"] / 2**30
+    if dev.type == "cuda" and not abs(peak_cd / peak_c - 1) <= 0.15:
+        failures_3l.append(f"phase 3l (c): predicted peak {peak_cd:.3f} GiB against the "
+                           f"measured {peak_c:.3f} GiB")
+    del dc_params, dc_cache, dc_logits
+    free_card()
+    # the kernel at the step's shape, the cache's [B, S, Hkv, D] layout as
+    # strided views, on operands whose outputs are O(1) (DECODE_MEAN_STD):
+    # every row valid (the step's lengths), then ragged
+    Hkv_, hd_, Hq_ = dc_cfg.n_kv_heads, dc_cfg.resolved_head_dim, dc_cfg.n_heads
+    with torch.no_grad():
+        qd, kd, vd = decode_check_operands(B_dc, S_dc, Hkv_, Hq_, hd_, dev, seed=11)
+        errs, ref_std = [], []
+        for lens in decode_check_lengths(B_dc, S_dc):
+            lengths = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+            out = ops.decode_attention(qd, kd, vd, lengths)
+            ref = kref.decode_ref(qd.reshape(B_dc, Hkv_, Hq_ // Hkv_, hd_), kd, vd,
+                                  lengths.reshape(B_dc, 1),
+                                  sm_scale=1 / math.sqrt(hd_)).reshape(B_dc, Hq_, hd_)
+            ref_std.append(float(ref.float().std()))
+            if not ref_std[-1] >= 10 * ATTN_TOL["bfloat16"]:
+                fail(f"phase 3l (c): decode_ref's outputs have std {ref_std[-1]:.3g}, too small "
+                     f"for rtol = atol = {ATTN_TOL['bfloat16']} to see a wrong kernel")
+            errs.append(attn_close(out, ref, ATTN_TOL["bfloat16"],
+                                   f"phase 3l (c): decode kernel at [{B_dc}, {S_dc}, {Hkv_}, "
+                                   f"{hd_}], lengths {lens}"))
+        max_err["decode_attention"] = max(max_err["decode_attention"], *errs)
+        del qd, kd, vd, out, ref
+    free_card()
+    log(f"phase 3l (c): {dc_cfg.name} decode step of {B_dc} sequences at cache_len {S_dc - 1} "
+        f"of {S_dc} rows (attn_impl pallas): params {real['params'] / 1e9:.4f} GB, cache "
+        f"{real['cache'] / 1e9:.4f} GB, equal to the dry-run's; launches {kc['decode_attention']} "
+        f"decode (the dry-run reckons {dry_calls} and launched none); predicted peak "
+        f"{peak_cd:.3f} GiB against the measured {peak_c:.3f} GiB (above the {held_c:.3f} GiB "
+        f"held before) [{smi_tag}]; decode kernel at "
+        f"[{B_dc}, {S_dc}, {Hkv_}, {hd_}] (G = {Hq_ // Hkv_}) against decode_ref, max abs "
+        f"{[round(e, 6) for e in errs]} (full, ragged lengths; rtol = atol = "
+        f"{ATTN_TOL['bfloat16']}; decode_ref's outputs of std {[round(x, 4) for x in ref_std]})")
+    log(f"phase 3l: {time.perf_counter() - t_3l:.1f} s in all; launches {launches_3l}")
+    if failures_3l:
+        fail("phase 3l: " + " | ".join(failures_3l))
 
     # ------------------------------------------------------------------ 4
     def timed(fn, n=reps):
@@ -3636,7 +3896,8 @@ def main(rehearse: bool) -> None:
              replaces=REPLACES[r["name"]],
              launches=(mlaunches if r["name"] == "fused_select" else
                        slaunches if r["name"] in ("flash_attention", "decode_attention")
-                       else launches)[r["name"]] + launches_3k[r["name"]],
+                       else launches)[r["name"]] + launches_3k[r["name"]]
+                      + launches_3l[r["name"]],
              max_abs_err=max_err[r["name"]], ms=r["ms"], plain_ms=r["plain_ms"],
              bound_ms=r["bound"][0], bound_by=r["bound"][1], library_ms=r["library_ms"])
         for r in rows

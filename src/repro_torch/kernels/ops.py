@@ -2,11 +2,18 @@
 
 Each wrapper dispatches on where its tensors lie: CPU tensors go to the
 plain PyTorch version, CUDA tensors to the hand-written CUDA kernel, which
-either launches or raises (there is no fallback).  Operands on mixed
+either launches or raises (there is no fallback).  On ``meta`` tensors
+(the dry-run, `repro_torch.launch.dryrun`) a wrapper launches nothing: it
+returns empty tensors of the kernel's result shapes and dtypes and tells
+the listeners in `meta_listeners` the work the kernel would do, the
+operations and bytes `chip_smoke.py`'s phase 4 reckons for its bound
+(meta tensors hold no data, so data-dependent work is counted whole: every
+BM25 column, every candidate pair, every cache row).  Operands on mixed
 devices raise.  Each kernel launcher keeps an integer count of its
 launches (`launch_counts`), so a run can show that it went through the
-kernels.  The two attention wrappers are forward only: a call that
-autograd would record raises, on the CPU as on the card.
+kernels; a meta call counts none.  The two attention wrappers are forward
+only: a call that autograd would record raises, on the CPU, the card and
+meta alike.
 """
 from __future__ import annotations
 
@@ -57,13 +64,45 @@ def _forward_only(name: str, *tensors) -> None:
             "grad; train with attn_impl='naive' or 'chunked', or call it under torch.no_grad()")
 
 
-def _on_cuda(*tensors) -> bool:
+def _where(*tensors) -> str:
+    """"cpu", "cuda" or "meta": the one device type of the tensor operands
+    (no tensor counts as the CPU); a mix raises."""
     kinds = {t.device.type for t in tensors if isinstance(t, torch.Tensor)}
     if kinds <= {"cpu"}:
-        return False
-    if kinds == {"cuda"}:
-        return True
+        return "cpu"
+    if kinds in ({"cuda"}, {"meta"}):
+        return kinds.pop()
     raise ValueError(f"repro_torch.ops: operands on mixed devices {sorted(kinds)}")
+
+
+# callables (name, n_ops, n_bytes, ops_dtype) told of each kernel call on
+# meta tensors; `repro_torch.launch.hlo_analysis.StepCounter` adds itself
+meta_listeners: list = []
+
+
+def _meta_call(name: str, n_ops, n_bytes, ops_dtype: torch.dtype, *outs):
+    """A kernel call on meta tensors: report its work, launch nothing, and
+    return ``outs`` (empty meta tensors of the result shapes)."""
+    for fn in meta_listeners:
+        fn(name, float(n_ops), float(n_bytes), ops_dtype)
+    return outs[0] if len(outs) == 1 else outs
+
+
+def _nbytes(*tensors) -> int:
+    """Bytes of the distinct tensors among ``tensors`` (None skipped)."""
+    seen = {id(t): t for t in tensors if isinstance(t, torch.Tensor)}
+    return sum(t.numel() * t.element_size() for t in seen.values())
+
+
+def _empty_meta(shape, dtype):
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def _winners_meta(name: str, n_q: int, n_ops, n_bytes):
+    """The selection kernels' four results (tool_idx i32, C, N, S) on meta."""
+    return _meta_call(name, n_ops, n_bytes, torch.float32,
+                      _empty_meta((n_q,), torch.int32),
+                      *(_empty_meta((n_q,), torch.float32) for _ in range(3)))
 
 
 # ---------------------------------------------------------------------------
@@ -76,7 +115,13 @@ def bm25_scores(qcounts: torch.Tensor, weights_t: torch.Tensor) -> torch.Tensor:
     The weights come transposed, the layout the kernel reads (a used term is
     one contiguous row); the engines keep their static weights so.  f32 and
     bf16 weights go to the kernel as they are."""
-    if not _on_cuda(qcounts, weights_t):
+    where = _where(qcounts, weights_t)
+    if where == "meta":
+        (n_q, V), n_docs = qcounts.shape, weights_t.shape[1]
+        return _meta_call("bm25_scores", 2 * n_q * V * n_docs,
+                          4 * (qcounts.numel() + n_q * n_docs) + _nbytes(weights_t),
+                          torch.float32, _empty_meta((n_q, n_docs), torch.float32))
+    if where == "cpu":
         return _bm25_plain(weights_t.t(), qcounts)
     if weights_t.dtype not in (torch.float32, torch.bfloat16):
         weights_t = weights_t.to(torch.float32)
@@ -90,7 +135,11 @@ def bm25_scores(qcounts: torch.Tensor, weights_t: torch.Tensor) -> torch.Tensor:
 
 def qos_scores(lat: torch.Tensor, params: QosParams = DEFAULT_QOS) -> torch.Tensor:
     """Fleet QoS scores N [n] from windows lat [n, T] (Eq. 7)."""
-    if not _on_cuda(lat):
+    where = _where(lat)
+    if where == "meta":
+        return _meta_call("qos_scores", 12 * lat.numel(), _nbytes(lat) + 4 * lat.shape[0],
+                          torch.float32, _empty_meta(lat.shape[:1], torch.float32))
+    if where == "cpu":
         return network_score(lat, params)
     if lat.dtype != torch.bfloat16:
         lat = lat.to(torch.float32)
@@ -143,7 +192,12 @@ def fused_select(
     cut to ``n_tools``, and above the kernel's K_MAX it raises."""
     k = min(k, sel_scores.shape[-1])
     extras = (tool_qos, tool_load, tool_dead, tool_rtt, tool_aff)
-    if not _on_cuda(sel_scores, val_scores, *extras):
+    where = _where(sel_scores, val_scores, *extras)
+    if where == "meta":
+        n_q, n_tools = sel_scores.shape
+        return _winners_meta("fused_select", n_q, n_q * (k * n_tools + 12 * k),
+                             _nbytes(sel_scores, val_scores, *extras) + 16 * n_q)
+    if where == "cpu":
         return kref.fused_select_ref(
             sel_scores, val_scores, tool_qos, tool_load, tool_dead, k=k, alpha=alpha,
             beta=beta, gamma=gamma, temp=temp, tool_rtt=tool_rtt, delta=delta,
@@ -200,7 +254,13 @@ def fused_score_select(
     gives them distinct; a repeated one is walked once)."""
     k = min(k, w_tool.shape[0])
     extras = (tool_qos, tool_load, tool_dead, q_rerank, tool_rtt, tool_aff)
-    if not _on_cuda(q_tool, w_tool, tool_server, cand_servers, *extras):
+    where = _where(q_tool, w_tool, tool_server, cand_servers, *extras)
+    if where == "meta":
+        (n_q, V), n_tools = q_tool.shape, w_tool.shape[0]
+        return _winners_meta("fused_score_select", n_q, 2 * n_q * n_tools * V,
+                             4 * (q_tool.numel() + cand_servers.numel() + tool_server.numel()
+                                  + n_tools * (V + 3) + 4 * n_q))
+    if where == "cpu":
         return kref.fused_score_select_ref(
             q_tool, w_tool, tool_server, cand_servers, tool_qos, tool_load,
             tool_dead, q_rerank, k=k, alpha=alpha, beta=beta, gamma=gamma,
@@ -267,7 +327,14 @@ def flash_attention(
     raises (`_forward_only`)."""
     _forward_only("flash_attention", q, k, v)
     sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if not _on_cuda(q, k, v):
+    where = _where(q, k, v)
+    if where == "meta":
+        B, Hq, Sq, D = q.shape
+        pairs = Sq * k.shape[2] / (2 if causal else 1)
+        return _meta_call("flash_attention", 4 * B * Hq * pairs * D,
+                          q.element_size() * (2 * q.numel() + k.numel() + v.numel()), q.dtype,
+                          _empty_meta(q.shape, q.dtype))
+    if where == "cpu":
         return kref.mha_ref(q, k, v, sm_scale=sm_scale, causal=causal)
     return with_padded_head(
         lambda q_, k_, v_: _fa.flash_attention_cuda(q_, k_, v_, sm_scale=sm_scale, causal=causal),
@@ -291,7 +358,12 @@ def decode_attention(
     G = Hq // Hkv
     sm_scale = 1.0 / math.sqrt(D)
     qg = q.reshape(B, Hkv, G, D)
-    if not _on_cuda(q, k, v, lengths):
+    where = _where(q, k, v, lengths)
+    if where == "meta":
+        return _meta_call("decode_attention", 4 * B * Hq * k.shape[2] * D,
+                          q.element_size() * (k.numel() + v.numel() + 2 * q.numel()), q.dtype,
+                          _empty_meta(q.shape, q.dtype))
+    if where == "cpu":
         out = kref.decode_ref(qg, k, v, lengths.reshape(B, 1), sm_scale=sm_scale)
     else:
         if lengths.dtype != torch.int32 or not lengths.is_contiguous():

@@ -2,6 +2,8 @@
 
     model = get_model(cfg)
     params = model.init_params(seed=0, device=None)   # None: the CUDA card
+    meta = model.init_params(abstract=True)           # meta tensors, nothing drawn
+    axes = model.param_axes()                         # logical axis names per leaf
     logits, cache = model.prefill(params, {"tokens": tokens})          # [B, 1, V]
     logits, cache = model.decode_step(params, cache, tokens, cache_len)
     loss, metrics = model.loss(params, {"tokens": tokens, "labels": labels})
@@ -46,12 +48,22 @@ def _family(cfg: ModelConfig) -> _Family:
 class Model:
     cfg: ModelConfig
 
-    def init_params(self, seed: int = 0, device=None) -> dict:
+    def init_params(self, seed: int = 0, device=None, abstract: bool = False) -> dict:
         """Random parameters drawn on ``device`` from a `torch.Generator`
-        seeded with ``seed``, in ``cfg.dtype``."""
-        dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(int(seed))
-        return _family(self.cfg).init(nn.InitCtx(gen=gen, dtype=self.cfg.torch_dtype), self.cfg)
+        seeded with ``seed``, in ``cfg.dtype``.  ``abstract``: empty tensors
+        of the same shapes and dtypes on the ``meta`` device, nothing drawn
+        and no device needed (the reference's ``abstract=True``)."""
+        if abstract:
+            ctx = nn.InitCtx(dtype=self.cfg.torch_dtype, abstract=True)
+        else:
+            gen = torch.Generator(device=resolve_device(device)).manual_seed(int(seed))
+            ctx = nn.InitCtx(gen=gen, dtype=self.cfg.torch_dtype)
+        return _family(self.cfg).init(ctx, self.cfg)
+
+    def param_axes(self) -> dict:
+        """The parameters' logical axis names, a tree like `init_params`'s
+        with a tuple of names at each leaf: the reference's ``axes`` tree."""
+        return _family(self.cfg).init(nn.InitCtx(dtype=self.cfg.torch_dtype, axes=True), self.cfg)
 
     def forward(self, params, batch, mode: str = "train", cache=None, cache_len=None):
         """The family's forward: ``train`` -> (logits at every position,

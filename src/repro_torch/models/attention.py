@@ -76,15 +76,16 @@ def attn_init(ctx: nn.InitCtx, cfg: ModelConfig, n_layers: int, cross: bool = Fa
     d, hd, n = cfg.d_model, cfg.resolved_head_dim, n_layers
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
     p = {
-        "wq": nn.fan_in_normal(ctx, (n, d, nq * hd), fan_in=d),
-        "wk": nn.fan_in_normal(ctx, (n, d, nkv * hd), fan_in=d),
-        "wv": nn.fan_in_normal(ctx, (n, d, nkv * hd), fan_in=d),
-        "wo": nn.fan_in_normal(ctx, (n, nq * hd, d), fan_in=nq * hd),
+        "wq": nn.fan_in_normal(ctx, (n, d, nq * hd), ("layers", "embed_fsdp", "qkv"), fan_in=d),
+        "wk": nn.fan_in_normal(ctx, (n, d, nkv * hd), ("layers", "embed_fsdp", "qkv"), fan_in=d),
+        "wv": nn.fan_in_normal(ctx, (n, d, nkv * hd), ("layers", "embed_fsdp", "qkv"), fan_in=d),
+        "wo": nn.fan_in_normal(ctx, (n, nq * hd, d), ("layers", "qkv", "embed_fsdp"),
+                               fan_in=nq * hd),
     }
     if cfg.qkv_bias and not cross:
-        p["bq"] = nn.zeros(ctx, (n, nq * hd))
-        p["bk"] = nn.zeros(ctx, (n, nkv * hd))
-        p["bv"] = nn.zeros(ctx, (n, nkv * hd))
+        p["bq"] = nn.zeros(ctx, (n, nq * hd), ("layers", "qkv"))
+        p["bk"] = nn.zeros(ctx, (n, nkv * hd), ("layers", "qkv"))
+        p["bv"] = nn.zeros(ctx, (n, nkv * hd), ("layers", "qkv"))
     return p
 
 

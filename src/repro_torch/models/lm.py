@@ -60,7 +60,10 @@ def _stack(trees: list):
 
 
 def _unstack(tree, n: int) -> list:
-    """A tree of [n, ...] tensors -> n trees of per-layer views."""
+    """A tree of [n, ...] tensors -> n trees of per-layer views (an axes
+    tree's names lose their leading "layers")."""
+    if nn.is_axes(tree):
+        return [tree[1:]] * n
     if isinstance(tree, dict):
         parts = {k: _unstack(v, n) for k, v in tree.items()}
         return [{k: parts[k][i] for k in tree} for i in range(n)]
@@ -110,13 +113,13 @@ def block_init(ctx: nn.InitCtx, cfg: ModelConfig, layer_idx: int, n_layers: int)
     axis (the reference's vmapped `stack_init`); one prelude block is
     ``_unstack(block_init(..., 1), 1)[0]``."""
     kind = _kind(cfg, layer_idx)
-    p = {"norm1": nn.ones(ctx, (n_layers, cfg.d_model))}
+    p = {"norm1": nn.ones(ctx, (n_layers, cfg.d_model), ("layers", "embed"))}
     if kind == "attn":
         p["attn"] = attn.attn_init(ctx, cfg, n_layers)
     else:
         p[kind] = _RECURRENT[kind].init(ctx, cfg, n_layers)
     if _has_ffn(kind):
-        p["norm2"] = nn.ones(ctx, (n_layers, cfg.d_model))
+        p["norm2"] = nn.ones(ctx, (n_layers, cfg.d_model), ("layers", "embed"))
         p["ffn"] = mlp.ffn_init(ctx, cfg, layer_idx, n_layers)
     return p
 
@@ -178,13 +181,13 @@ def block_apply(
 def lm_init(ctx: nn.InitCtx, cfg: ModelConfig) -> dict:
     d = cfg.d_model
     p: dict = {
-        "embed": nn.normal(ctx, (cfg.padded_vocab, d)),
-        "final_norm": nn.ones(ctx, (d,)),
+        "embed": nn.normal(ctx, (cfg.padded_vocab, d), ("vocab", "embed_fsdp")),
+        "final_norm": nn.ones(ctx, (d,), ("embed",)),
     }
     if not cfg.tie_embeddings:
-        p["head"] = nn.fan_in_normal(ctx, (d, cfg.padded_vocab))
+        p["head"] = nn.fan_in_normal(ctx, (d, cfg.padded_vocab), ("embed_fsdp", "vocab"))
     if cfg.n_vision_tokens:
-        p["vision_proj"] = nn.fan_in_normal(ctx, (d, d))
+        p["vision_proj"] = nn.fan_in_normal(ctx, (d, d), ("embed_fsdp", "embed"))
     for i in range(cfg.first_k_dense):
         p[f"prelude_{i}"] = _unstack(block_init(ctx, cfg, i, 1), 1)[0]
     nG = _n_groups(cfg)

@@ -48,17 +48,20 @@ def mamba_init(ctx: nn.InitCtx, cfg: ModelConfig, n_layers: int) -> dict:
     model dtype, as in the reference."""
     d, di, n = cfg.d_model, cfg.d_inner, n_layers
     nH, N, dc = cfg.mamba_heads, cfg.mamba_d_state, cfg.mamba_d_conv
-    a = torch.linspace(1.0, 16.0, nH, dtype=torch.float32, device=ctx.device)
+    def a_log():
+        a = torch.linspace(1.0, 16.0, nH, dtype=torch.float32, device=ctx.device)
+        return torch.log(a).expand(n, nH).clone()
+
     return {
-        "w_in": nn.fan_in_normal(ctx, (n, d, 2 * di), fan_in=d),
-        "conv_w": nn.normal(ctx, (n, dc, di), stddev=0.1),
-        "conv_b": nn.zeros(ctx, (n, di)),
-        "w_bc": nn.fan_in_normal(ctx, (n, di, 2 * N), fan_in=di),
-        "w_dt": nn.normal(ctx, (n, di, nH), stddev=0.02),
-        "dt_bias": nn.zeros(ctx, (n, nH)),
-        "a_log": torch.log(a).expand(n, nH).clone(),
-        "d_skip": nn.ones(ctx, (n, nH)),
-        "w_out": nn.fan_in_normal(ctx, (n, di, d), fan_in=di),
+        "w_in": nn.fan_in_normal(ctx, (n, d, 2 * di), ("layers", "embed_fsdp", "mlp"), fan_in=d),
+        "conv_w": nn.normal(ctx, (n, dc, di), ("layers", "conv", "mlp"), stddev=0.1),
+        "conv_b": nn.zeros(ctx, (n, di), ("layers", "mlp")),
+        "w_bc": nn.fan_in_normal(ctx, (n, di, 2 * N), ("layers", "mlp", "state"), fan_in=di),
+        "w_dt": nn.normal(ctx, (n, di, nH), ("layers", "mlp", "heads"), stddev=0.02),
+        "dt_bias": nn.zeros(ctx, (n, nH), ("layers", "heads")),
+        "a_log": nn.derived(ctx, (n, nH), ("layers", "heads"), torch.float32, a_log),
+        "d_skip": nn.ones(ctx, (n, nH), ("layers", "heads")),
+        "w_out": nn.fan_in_normal(ctx, (n, di, d), ("layers", "mlp", "embed_fsdp"), fan_in=di),
     }
 
 
@@ -111,7 +114,8 @@ def ssd_chunked(
     """Chunked SSD.  Returns (y [B, L, nH, P] in ``out_dtype``, h_final f32).
     The last chunk is padded with dt = 0 (decay 1, input 0), which leaves
     the final state as it is; sums are f32 whatever ``out_dtype``.  The
-    chunk loop runs under the profiler label ``netmcp.ssd_chunks``."""
+    chunk loop runs under the profiler label ``netmcp.ssd_chunks``; under
+    `nn.loop_cuts` on meta tensors ("ssd"), only its first chunks run."""
     B, L, nH, P = xh.shape
     Q = min(chunk, L)
     pad = (-L) % Q
@@ -126,8 +130,9 @@ def ssd_chunked(
         if h0 is None else h0.to(torch.float32)
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xh.device))
     ys = []
+    n_run = nn.meta_iterations("ssd", nC, xh)
     with torch.profiler.record_function("netmcp.ssd_chunks"):
-        for i in range(nC):
+        for i in range(n_run):
             xq = xc[i].to(torch.float32) * dc[i][..., None]   # dt-weighted input (f32)
             Bq, Cq = Bc[i], Cc[i]
             cum = torch.cumsum(lc[i], dim=1)                   # [B, Q, nH]
@@ -145,7 +150,7 @@ def ssd_chunked(
             h = h * torch.exp(total)[:, :, None, None] + torch.einsum(
                 "bsn,bshp->bhnp", Bq, xq * w[..., None])
             ys.append(y.to(out_dtype))
-    y = torch.stack(ys).transpose(0, 1).reshape(B, nC * Q, nH, P)[:, :L]
+    y = torch.stack(nn.fill_cut(ys, nC)).transpose(0, 1).reshape(B, nC * Q, nH, P)[:, :L]
     return y, h
 
 

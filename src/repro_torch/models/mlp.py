@@ -35,9 +35,10 @@ def dense_ffn_init(ctx: nn.InitCtx, cfg: ModelConfig, hidden: int, n_layers: int
     """SwiGLU weights of ``n_layers`` layers, stacked on a leading axis."""
     d, n = cfg.d_model, n_layers
     return {
-        "w_gate": nn.fan_in_normal(ctx, (n, d, hidden), fan_in=d),
-        "w_up": nn.fan_in_normal(ctx, (n, d, hidden), fan_in=d),
-        "w_down": nn.fan_in_normal(ctx, (n, hidden, d), fan_in=hidden),
+        "w_gate": nn.fan_in_normal(ctx, (n, d, hidden), ("layers", "embed_fsdp", "mlp"), fan_in=d),
+        "w_up": nn.fan_in_normal(ctx, (n, d, hidden), ("layers", "embed_fsdp", "mlp"), fan_in=d),
+        "w_down": nn.fan_in_normal(ctx, (n, hidden, d), ("layers", "mlp", "embed_fsdp"),
+                                   fan_in=hidden),
     }
 
 
@@ -55,10 +56,13 @@ def moe_ffn_init(ctx: nn.InitCtx, cfg: ModelConfig, n_layers: int) -> dict:
     ``n_shared_experts * moe_d_ff``."""
     d, f, E, n = cfg.d_model, cfg.moe_d_ff, cfg.n_experts, n_layers
     p = {
-        "router": nn.normal(ctx, (n, d, E), stddev=0.02),
-        "w_gate": nn.fan_in_normal(ctx, (n, E, d, f), fan_in=d),
-        "w_up": nn.fan_in_normal(ctx, (n, E, d, f), fan_in=d),
-        "w_down": nn.fan_in_normal(ctx, (n, E, f, d), fan_in=f),
+        "router": nn.normal(ctx, (n, d, E), ("layers", "embed_fsdp", "experts"), stddev=0.02),
+        "w_gate": nn.fan_in_normal(ctx, (n, E, d, f),
+                                   ("layers", "experts", "embed_fsdp", "expert_mlp"), fan_in=d),
+        "w_up": nn.fan_in_normal(ctx, (n, E, d, f),
+                                 ("layers", "experts", "embed_fsdp", "expert_mlp"), fan_in=d),
+        "w_down": nn.fan_in_normal(ctx, (n, E, f, d),
+                                   ("layers", "experts", "expert_mlp", "embed_fsdp"), fan_in=f),
     }
     if cfg.n_shared_experts:
         p["shared"] = dense_ffn_init(ctx, cfg, cfg.n_shared_experts * cfg.moe_d_ff, n)

@@ -54,9 +54,9 @@ def sinusoidal_pos(n: int, d: int, device=None) -> torch.Tensor:
 def _enc_block_init(ctx: nn.InitCtx, cfg: ModelConfig, n_layers: int) -> dict:
     d = cfg.d_model
     return {
-        "norm1": nn.ones(ctx, (n_layers, d)),
+        "norm1": nn.ones(ctx, (n_layers, d), ("layers", "embed")),
         "attn": attn.attn_init(ctx, cfg, n_layers),
-        "norm2": nn.ones(ctx, (n_layers, d)),
+        "norm2": nn.ones(ctx, (n_layers, d), ("layers", "embed")),
         "ffn": mlp.dense_ffn_init(ctx, cfg, cfg.d_ff, n_layers),
     }
 
@@ -64,11 +64,11 @@ def _enc_block_init(ctx: nn.InitCtx, cfg: ModelConfig, n_layers: int) -> dict:
 def _dec_block_init(ctx: nn.InitCtx, cfg: ModelConfig, n_layers: int) -> dict:
     d = cfg.d_model
     return {
-        "norm1": nn.ones(ctx, (n_layers, d)),
+        "norm1": nn.ones(ctx, (n_layers, d), ("layers", "embed")),
         "self_attn": attn.attn_init(ctx, cfg, n_layers),
-        "norm_x": nn.ones(ctx, (n_layers, d)),
+        "norm_x": nn.ones(ctx, (n_layers, d), ("layers", "embed")),
         "cross_attn": attn.attn_init(ctx, cfg, n_layers, cross=True),
-        "norm2": nn.ones(ctx, (n_layers, d)),
+        "norm2": nn.ones(ctx, (n_layers, d), ("layers", "embed")),
         "ffn": mlp.dense_ffn_init(ctx, cfg, cfg.d_ff, n_layers),
     }
 
@@ -76,12 +76,12 @@ def _dec_block_init(ctx: nn.InitCtx, cfg: ModelConfig, n_layers: int) -> dict:
 def whisper_init(ctx: nn.InitCtx, cfg: ModelConfig) -> dict:
     d = cfg.d_model
     return {
-        "embed": nn.normal(ctx, (cfg.padded_vocab, d)),
+        "embed": nn.normal(ctx, (cfg.padded_vocab, d), ("vocab", "embed_fsdp")),
         "enc_blocks": _enc_block_init(ctx, cfg, cfg.n_encoder_layers),
-        "enc_norm": nn.ones(ctx, (d,)),
+        "enc_norm": nn.ones(ctx, (d,), ("embed",)),
         "dec_blocks": _dec_block_init(ctx, cfg, cfg.n_layers),
-        "dec_norm": nn.ones(ctx, (d,)),
-        "head": nn.fan_in_normal(ctx, (d, cfg.padded_vocab)),
+        "dec_norm": nn.ones(ctx, (d,), ("embed",)),
+        "head": nn.fan_in_normal(ctx, (d, cfg.padded_vocab), ("embed_fsdp", "vocab")),
     }
 
 

@@ -16,7 +16,9 @@ steps.  The stabiliser m starts at `NEG_INF` and is clamped at -30.
 sLSTM's recurrent weights make each step depend on h_{t-1}, so
 `slstm_cell` is a Python loop over the tokens (the reference's `lax.scan`);
 its stabiliser starts at -30.  All of it is plain PyTorch: the reference
-computes these products with `jnp.einsum` outside any Pallas kernel.
+computes these products with `jnp.einsum` outside any Pallas kernel.  On
+``meta`` tensors the dry-run may cut both loops short (`nn.loop_cuts`) and
+scale what a few iterations cost to the whole sequence.
 
 Every weight carries the port's leading layer axis (the reference's
 stacked scan groups); `lm_forward` hands each layer its own slice.
@@ -51,17 +53,17 @@ def mlstm_init(ctx: nn.InitCtx, cfg: ModelConfig, n_layers: int) -> dict:
     d, n, nH = cfg.d_model, n_layers, cfg.n_heads
     di = int(cfg.mlstm_proj_factor * d)
     return {
-        "w_up": nn.fan_in_normal(ctx, (n, d, 2 * di), fan_in=d),
-        "w_q": nn.fan_in_normal(ctx, (n, di, di), fan_in=di),
-        "w_k": nn.fan_in_normal(ctx, (n, di, di), fan_in=di),
-        "w_v": nn.fan_in_normal(ctx, (n, di, di), fan_in=di),
-        "w_i": nn.normal(ctx, (n, di, nH), stddev=0.02),
-        "w_f": nn.normal(ctx, (n, di, nH), stddev=0.02),
-        "b_i": nn.zeros(ctx, (n, nH)),
-        "b_f": nn.ones(ctx, (n, nH)),
-        "w_o": nn.fan_in_normal(ctx, (n, di, di), fan_in=di),
-        "norm": nn.ones(ctx, (n, di)),
-        "w_down": nn.fan_in_normal(ctx, (n, di, d), fan_in=di),
+        "w_up": nn.fan_in_normal(ctx, (n, d, 2 * di), ("layers", "embed_fsdp", "mlp"), fan_in=d),
+        "w_q": nn.fan_in_normal(ctx, (n, di, di), ("layers", "mlp", "qkv"), fan_in=di),
+        "w_k": nn.fan_in_normal(ctx, (n, di, di), ("layers", "mlp", "qkv"), fan_in=di),
+        "w_v": nn.fan_in_normal(ctx, (n, di, di), ("layers", "mlp", "qkv"), fan_in=di),
+        "w_i": nn.normal(ctx, (n, di, nH), ("layers", "mlp", "heads"), stddev=0.02),
+        "w_f": nn.normal(ctx, (n, di, nH), ("layers", "mlp", "heads"), stddev=0.02),
+        "b_i": nn.zeros(ctx, (n, nH), ("layers", "heads")),
+        "b_f": nn.ones(ctx, (n, nH), ("layers", "heads")),
+        "w_o": nn.fan_in_normal(ctx, (n, di, di), ("layers", "mlp", "qkv"), fan_in=di),
+        "norm": nn.ones(ctx, (n, di), ("layers", "mlp")),
+        "w_down": nn.fan_in_normal(ctx, (n, di, d), ("layers", "mlp", "embed_fsdp"), fan_in=di),
     }
 
 
@@ -74,7 +76,9 @@ def _init_mlstm_carry(B, nH, dh, device):
 def mlstm_chunked(q, k, v, log_f, log_i, chunk: int, state: Optional[dict] = None):
     """q/k/v [B, L, nH, dh]; log_f/log_i [B, L, nH].  Returns (h [B, L, nH,
     dh] f32, state {C, n, m}).  The last chunk is padded with log f = 0 and
-    log i = `NEG_INF` (f = 1, i = 0), which leaves the state as it is."""
+    log i = `NEG_INF` (f = 1, i = 0), which leaves the state as it is.
+    Under `nn.loop_cuts` on meta tensors ("mlstm"), only the first chunks
+    run."""
     B, L, nH, dh = q.shape
     Q = min(chunk, L)
     pad = (-L) % Q
@@ -92,7 +96,8 @@ def mlstm_chunked(q, k, v, log_f, log_i, chunk: int, state: Optional[dict] = Non
         C, n, m = state["C"], state["n"], state["m"]
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=q.device))
     hs = []
-    for i in range(nC):
+    n_run = nn.meta_iterations("mlstm", nC, q)
+    for i in range(n_run):
         qq, kk, vv, lf, li = qc[i], kc[i], vc[i], fc[i], ic[i]
         b = torch.cumsum(lf, dim=1)                                   # [B, Q, nH]
         # log decay(t, s) = b_t - b_s + li_s  (s <= t)
@@ -121,7 +126,7 @@ def mlstm_chunked(q, k, v, log_f, log_i, chunk: int, state: Optional[dict] = Non
         C = C * decay[..., None, None] + torch.einsum("bshd,bshe->bhde", kk * w[..., None], vv)
         n = n * decay[..., None] + (kk * w[..., None]).sum(dim=1)
         m = m_new
-    h = torch.stack(hs).transpose(0, 1).reshape(B, nC * Q, nH, dh)[:, :L]
+    h = torch.stack(nn.fill_cut(hs, nC)).transpose(0, 1).reshape(B, nC * Q, nH, dh)[:, :L]
     return h, {"C": C, "n": n, "m": m}
 
 
@@ -228,20 +233,24 @@ def slstm_init(ctx: nn.InitCtx, cfg: ModelConfig, n_layers: int) -> dict:
     dh = d // nH
     dff = int(cfg.slstm_proj_factor * d)
     return {
-        "w": nn.fan_in_normal(ctx, (n, d, 4 * d), fan_in=d),
-        "r": nn.normal(ctx, (n, nH, dh, 4 * dh), stddev=0.02),
-        "b": nn.zeros(ctx, (n, 4 * d)),
+        "w": nn.fan_in_normal(ctx, (n, d, 4 * d), ("layers", "embed_fsdp", "mlp"), fan_in=d),
+        "r": nn.normal(ctx, (n, nH, dh, 4 * dh), ("layers", "heads", "head_dim", "mlp"),
+                       stddev=0.02),
+        "b": nn.zeros(ctx, (n, 4 * d), ("layers", "mlp")),
         "up": {
-            "w_gate": nn.fan_in_normal(ctx, (n, d, dff), fan_in=d),
-            "w_up": nn.fan_in_normal(ctx, (n, d, dff), fan_in=d),
-            "w_down": nn.fan_in_normal(ctx, (n, dff, d), fan_in=dff),
+            "w_gate": nn.fan_in_normal(ctx, (n, d, dff), ("layers", "embed_fsdp", "mlp"),
+                                       fan_in=d),
+            "w_up": nn.fan_in_normal(ctx, (n, d, dff), ("layers", "embed_fsdp", "mlp"), fan_in=d),
+            "w_down": nn.fan_in_normal(ctx, (n, dff, d), ("layers", "mlp", "embed_fsdp"),
+                                       fan_in=dff),
         },
     }
 
 
 def slstm_cell(p: dict, cfg: ModelConfig, x_seq: torch.Tensor, state: dict):
     """x_seq [B, L, d]; the recurrence over L, one token at a time.  Returns
-    (h [B, L, d] in x's dtype, state {c, n, m, h})."""
+    (h [B, L, d] in x's dtype, state {c, n, m, h}).  Under `nn.loop_cuts`
+    on meta tensors ("slstm"), only the first tokens run."""
     B, L, d = x_seq.shape
     nH = cfg.n_heads
     dh = d // nH
@@ -250,7 +259,8 @@ def slstm_cell(p: dict, cfg: ModelConfig, x_seq: torch.Tensor, state: dict):
     bias = p["b"].to(torch.float32)
     c, n, m, h = state["c"], state["n"], state["m"], state["h"]
     hs = []
-    for t in range(L):
+    n_run = nn.meta_iterations("slstm", L, x_seq)
+    for t in range(n_run):
         rec = torch.einsum("bhd,hdf->bhf", h.reshape(B, nH, dh), r)
         gates = wx[:, t] + rec.reshape(B, 4 * d) + bias
         i_r, f_r, z_r, o_r = torch.chunk(gates, 4, dim=-1)
@@ -262,7 +272,7 @@ def slstm_cell(p: dict, cfg: ModelConfig, x_seq: torch.Tensor, state: dict):
         h = nn.sigmoid(o_r) * c / torch.clamp(n, min=1e-6)
         m = m_new
         hs.append(h)
-    out = torch.stack(hs, dim=1) if hs else wx.new_zeros((B, 0, d))
+    out = torch.stack(nn.fill_cut(hs, L), dim=1) if hs else wx.new_zeros((B, 0, d))
     return out.to(x_seq.dtype), {"c": c, "n": n, "m": m, "h": h}
 
 
