@@ -68,6 +68,7 @@ from repro_torch.core.routing import (  # noqa: F401  (ALGORITHMS: the reference
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.score_fuse import ToolCsr, tool_csr
+from repro_torch.obs.trace import NULL_TRACER, SpanTracer
 
 NEG = kref.NEG
 
@@ -135,34 +136,37 @@ def check_n_real(batch: EncodedBatch, n_real) -> None:
 
 
 def encode_for_index(
-    index, uses_prediction: bool, rerank: bool, queries: Sequence[str]
+    index, uses_prediction: bool, rerank: bool, queries: Sequence[str],
+    tracer: SpanTracer = NULL_TRACER,
 ) -> EncodedBatch:
     """Encode query strings against an index's corpora: the only per-query
     Python of the batched path.  ``uses_prediction`` applies the
     deterministic preprocess stand-in (PRAG/SONAR family); ``rerank`` also
-    encodes the canonical-intent rerank queries (RerankRAG)."""
-    if uses_prediction:
-        qtexts = [predict_tool_type(q)[1] for q in queries]
-    else:
-        qtexts = list(queries)
-    if not qtexts:
-        v_s = len(index.server_corpus.vocab)
-        v_t = len(index.tool_corpus.vocab)
+    encodes the canonical-intent rerank queries (RerankRAG).  Runs under
+    ``tracer``'s span ``netmcp.encode``, holding ``netmcp.encode.intent``
+    (the intent predictions) and ``netmcp.encode.terms`` (term counts)."""
+    with tracer.span("netmcp.encode", cat="routing", args={"n": len(queries)}):
+        with tracer.span("netmcp.encode.intent", cat="routing"):
+            if uses_prediction:
+                qtexts = [predict_tool_type(q)[1] for q in queries]
+            else:
+                qtexts = list(queries)
+            rtexts = [predict_tool_type(q)[1] for q in queries] if rerank and qtexts else None
+        if not qtexts:
+            v_s = len(index.server_corpus.vocab)
+            v_t = len(index.tool_corpus.vocab)
 
-        def empty(v):
-            return np.zeros((0, v), np.float32)
+            def empty(v):
+                return np.zeros((0, v), np.float32)
 
-        return EncodedBatch(
-            q_server=empty(v_s), q_tool=empty(v_t),
-            q_rerank=empty(v_t) if rerank else None, n=0,
-        )
-    q_server = index.server_corpus.encode_queries(qtexts)
-    q_tool = index.tool_corpus.encode_queries(qtexts)
-    q_rerank = None
-    if rerank:
-        q_rerank = index.tool_corpus.encode_queries(
-            [predict_tool_type(q)[1] for q in queries]
-        )
+            return EncodedBatch(
+                q_server=empty(v_s), q_tool=empty(v_t),
+                q_rerank=empty(v_t) if rerank else None, n=0,
+            )
+        with tracer.span("netmcp.encode.terms", cat="routing"):
+            q_server = index.server_corpus.encode_queries(qtexts)
+            q_tool = index.tool_corpus.encode_queries(qtexts)
+            q_rerank = None if rtexts is None else index.tool_corpus.encode_queries(rtexts)
     return EncodedBatch(
         q_server=q_server, q_tool=q_tool, q_rerank=q_rerank, n=len(queries)
     )
@@ -465,30 +469,29 @@ class BatchRoutingEngine:
             aff = self._to(affinity, f32)
         cfg = self.cfg
         adapt_w = None if self.learner is None else self.learner.pending_weights()
-        with torch.profiler.record_function("netmcp.route_pipeline"):
-            server_idx, tool_idx, c, n, s = _route_pipeline(
-                self._to(batch.q_server, f32),
-                self._to(batch.q_tool, f32),
-                None if batch.q_rerank is None else self._to(batch.q_rerank, f32),
-                self._w_server_t, self._w_tool, self._tool_server, self._tool_server_l,
-                self._tool_csr if self.use_kernels else None,
-                lat, load, age, dead, rtt, reg_idx, reg_rtt, aff, adapt_w,
-                top_s=cfg.top_s, top_k=cfg.top_k, alpha=cfg.alpha,
-                beta=cfg.beta, gamma=cfg.gamma, load_knee=cfg.load_knee,
-                load_sharp=cfg.load_sharp, delta=cfg.delta,
-                rtt_scale=cfg.rtt_scale_ms, temp=cfg.expertise_temp,
-                stale_half_life=cfg.stale_half_life_s,
-                use_network=self.uses_network and lat is not None,
-                use_load=load is not None,
-                use_staleness=age is not None,
-                use_failover=dead is not None,
-                use_rtt=rtt is not None or reg_idx is not None,
-                use_aff=aff is not None,
-                eps=cfg.eps if aff is not None else 0.0,
-                rerank=self.rerank,
-                use_kernels=self.use_kernels,
-                qos_params=cfg.qos,
-            )
+        server_idx, tool_idx, c, n, s = _route_pipeline(
+            self._to(batch.q_server, f32),
+            self._to(batch.q_tool, f32),
+            None if batch.q_rerank is None else self._to(batch.q_rerank, f32),
+            self._w_server_t, self._w_tool, self._tool_server, self._tool_server_l,
+            self._tool_csr if self.use_kernels else None,
+            lat, load, age, dead, rtt, reg_idx, reg_rtt, aff, adapt_w,
+            top_s=cfg.top_s, top_k=cfg.top_k, alpha=cfg.alpha,
+            beta=cfg.beta, gamma=cfg.gamma, load_knee=cfg.load_knee,
+            load_sharp=cfg.load_sharp, delta=cfg.delta,
+            rtt_scale=cfg.rtt_scale_ms, temp=cfg.expertise_temp,
+            stale_half_life=cfg.stale_half_life_s,
+            use_network=self.uses_network and lat is not None,
+            use_load=load is not None,
+            use_staleness=age is not None,
+            use_failover=dead is not None,
+            use_rtt=rtt is not None or reg_idx is not None,
+            use_aff=aff is not None,
+            eps=cfg.eps if aff is not None else 0.0,
+            rerank=self.rerank,
+            use_kernels=self.use_kernels,
+            qos_params=cfg.qos,
+        )
         if route_stats is not None:
             route_stats.accumulate(server_idx, c, n, s, n_real=n_real)
         return BatchDecisions(

@@ -78,6 +78,8 @@ from repro_torch.core.routing import (  # noqa: F401  (ALGORITHMS: the reference
 )
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
+from repro_torch.obs import Observability
+from repro_torch.obs.trace import NULL_TRACER, SpanTracer
 
 NEG = kref.NEG
 PAD_NEG = 2.0 * NEG   # pad sentinel: sorts strictly below every real score
@@ -506,47 +508,53 @@ def _flatten_shards(x: torch.Tensor) -> torch.Tensor:
     return x.permute(1, 0, 2).reshape(n_q, J * K)
 
 
-def _route_sharded(dyn: dict, sc: _StaticCfg):
+def _route_sharded(dyn: dict, sc: _StaticCfg, tracer: SpanTracer = NULL_TRACER):
     """Hierarchical shard-stacked routing.  Key presence in ``dyn`` selects
     the input mode: dense or tiled weights and telemetry, and which
-    optional vectors are supplied."""
+    optional vectors are supplied.  Its four stages run under ``tracer``'s
+    spans ``netmcp.route.score`` (template scoring), ``netmcp.route.stage1``
+    (the fleet-axis top-s), ``netmcp.route.stage2`` (candidate tools) and
+    ``netmcp.route.select`` (the fused tail)."""
     # -- tiled template scoring (small products + gathers).  bf16 template
     # weights [V, n_templates] go to the products as they are: both widen
     # them exactly, so scores equal scoring the rounded f32 weights --
     compact2 = sc.compact2 and "tool_doc_map" in dyn
     d = dict(dyn)
     t_full = v_full = nt = None
-    if "server_doc_map" in dyn:
-        s_full = _bm25_2d(dyn["q_server"], dyn["w_server_tpl"], sc)
-        d["s_pre"] = s_full[:, dyn["server_doc_map"].long()].permute(1, 0, 2)
-    if "tool_doc_map" in dyn:
-        w_tool_tpl = dyn["w_tool_tpl"]
-        t_full = _bm25_2d(dyn["q_tool"], w_tool_tpl, sc)
-        if sc.rerank:
-            v_full = _bm25_2d(dyn["q_rerank"], w_tool_tpl, sc)
-        if not compact2:
-            d["t_pre"] = t_full[:, dyn["tool_doc_map"].long()].permute(1, 0, 2)
+    with tracer.span("netmcp.route.score", cat="routing"):
+        if "server_doc_map" in dyn:
+            s_full = _bm25_2d(dyn["q_server"], dyn["w_server_tpl"], sc)
+            d["s_pre"] = s_full[:, dyn["server_doc_map"].long()].permute(1, 0, 2)
+        if "tool_doc_map" in dyn:
+            w_tool_tpl = dyn["w_tool_tpl"]
+            t_full = _bm25_2d(dyn["q_tool"], w_tool_tpl, sc)
             if sc.rerank:
-                d["val_pre"] = v_full[:, dyn["tool_doc_map"].long()].permute(1, 0, 2)
-    if "lat_t" in dyn:
-        nt = _qos_2d(dyn["lat_t"], sc)                    # [M_t]
-        if not compact2:
-            d["qos_pre"] = nt[dyn["tel_map"].long()][:, None, :]   # [J, 1, s_pad]
+                v_full = _bm25_2d(dyn["q_rerank"], w_tool_tpl, sc)
+            if not compact2:
+                d["t_pre"] = t_full[:, dyn["tool_doc_map"].long()].permute(1, 0, 2)
+                if sc.rerank:
+                    d["val_pre"] = v_full[:, dyn["tool_doc_map"].long()].permute(1, 0, 2)
+        if "lat_t" in dyn:
+            nt = _qos_2d(dyn["lat_t"], sc)                    # [M_t]
+            if not compact2:
+                d["qos_pre"] = nt[dyn["tel_map"].long()][:, None, :]   # [J, 1, s_pad]
 
     # -- stage 1: shard-local server top-s, then the merge (Eq. 2) --
-    v_sh, gid_sh = _stage1_stacked(d, sc)
-    top_s = min(sc.top_s, sc.n_servers)
-    _, pos = topk(_flatten_shards(v_sh), top_s)
-    cand_gids = torch.gather(_flatten_shards(gid_sh), -1, pos)
+    with tracer.span("netmcp.route.stage1", cat="routing"):
+        v_sh, gid_sh = _stage1_stacked(d, sc)
+        top_s = min(sc.top_s, sc.n_servers)
+        _, pos = topk(_flatten_shards(v_sh), top_s)
+        cand_gids = torch.gather(_flatten_shards(gid_sh), -1, pos)
 
     # -- stage 2: candidate tools + telemetry terms, then the merge --
-    if compact2:
-        sel, val, qos, load, rtt, dead, aff, gid = _stage2_compact(
-            d, t_full, v_full, nt, cand_gids, sc
-        )
-    else:
-        outs = _stage2_stacked(d, cand_gids, sc)
-        sel, val, qos, load, rtt, dead, aff, gid = (_flatten_shards(x) for x in outs)
+    with tracer.span("netmcp.route.stage2", cat="routing"):
+        if compact2:
+            sel, val, qos, load, rtt, dead, aff, gid = _stage2_compact(
+                d, t_full, v_full, nt, cand_gids, sc
+            )
+        else:
+            outs = _stage2_stacked(d, cand_gids, sc)
+            sel, val, qos, load, rtt, dead, aff, gid = (_flatten_shards(x) for x in outs)
 
     # -- the fused tail.  SONAR-ADAPT's live weight vector replaces the
     # static floats on its active terms; inactive terms keep the structural
@@ -568,14 +576,15 @@ def _route_sharded(dyn: dict, sc: _StaticCfg):
     aff_active = sc.use_aff and "aff" in dyn
     k_final = min(sc.top_k, sc.n_tools)
     tail = ops.fused_select if sc.use_kernels else kref.fused_select_ref
-    pos, c, n, s = tail(
-        sel, val, qos, load, dead_arg,
-        k=k_final, alpha=eff_alpha, beta=eff_beta, gamma=eff_gamma,
-        tool_rtt=rtt, delta=eff_delta, tool_aff=aff if aff_active else None,
-        eps=sc.eps if aff_active else 0.0, temp=sc.temp,
-    )
-    tool_idx = torch.gather(gid, -1, pos[:, None].long())[:, 0]
-    server_idx = dyn["tool_server"][tool_idx.long()]
+    with tracer.span("netmcp.route.select", cat="routing"):
+        pos, c, n, s = tail(
+            sel, val, qos, load, dead_arg,
+            k=k_final, alpha=eff_alpha, beta=eff_beta, gamma=eff_gamma,
+            tool_rtt=rtt, delta=eff_delta, tool_aff=aff if aff_active else None,
+            eps=sc.eps if aff_active else 0.0, temp=sc.temp,
+        )
+        tool_idx = torch.gather(gid, -1, pos[:, None].long())[:, 0]
+        server_idx = dyn["tool_server"][tool_idx.long()]
     return server_idx, tool_idx, c, n, s
 
 
@@ -597,7 +606,12 @@ class ShardedRoutingEngine:
     A tiled fleet takes the candidate-compacted stage 2 when every server
     hosts a tool and ``n_servers >= cfg.top_s`` (``self.compact_stage2``).
     ``adapt`` (implied by ``algo="sonar_adapt"``) turns on the SONAR-ADAPT
-    learner: one replicated state, updated once per route.
+    learner: one replicated state, updated once per route.  ``obs`` (default
+    a disabled `Observability`) lends its tracer to the engine's spans:
+    ``netmcp.encode`` (`encode_for_index`), then per `route`
+    ``netmcp.route_prep`` (host vectors to the card, entry to the device
+    call), ``netmcp.route_sharded`` (`_route_sharded`'s four stages) and
+    ``netmcp.route_fetch`` (the decisions' host reads).
     """
 
     def __init__(
@@ -611,10 +625,12 @@ class ShardedRoutingEngine:
         index=None,
         adapt: Optional[_adaptive.AdaptConfig] = None,
         device=None,
+        obs: Optional[Observability] = None,
     ):
         if mesh is not None and not (isinstance(mesh, str) and mesh == "auto"):
             raise NotImplementedError(MESH_NOT_PORTED)
         self.mesh = None
+        self.obs = obs if obs is not None else Observability()
         self.device = resolve_device(device)
         if use_kernels is None:
             use_kernels = self.device.type == "cuda"
@@ -706,7 +722,8 @@ class ShardedRoutingEngine:
     # -- host side ----------------------------------------------------------
     def encode(self, queries: Sequence[str]) -> EncodedBatch:
         """Strings -> term-count matrices (see `BatchRoutingEngine.encode`)."""
-        return encode_for_index(self.index, self.uses_prediction, self.rerank, queries)
+        return encode_for_index(self.index, self.uses_prediction, self.rerank, queries,
+                                self.obs.tracer)
 
     def select_latency_ms(self) -> float:
         sl = LLM_CALL_MS + 2 * BM25_STAGE_MS
@@ -766,75 +783,78 @@ class ShardedRoutingEngine:
         n_servers])`` keeps the RTT input compact the same way.
         ``route_stats`` and ``n_real`` as `BatchRoutingEngine.route`.
         """
-        check_n_real(batch, n_real)
-        if batch.n == 0:
-            z = np.zeros((0,), np.float32)
-            return BatchDecisions(
-                server_idx=z.astype(np.int32), tool_idx=z.astype(np.int32),
-                expertise=z, network=z, fused=z, select_latency_ms=self.select_latency_ms(),
-            )
-        dyn: dict = {
-            "tool_server": self._tool_server,
-            "server_gid": self._server_gid,
-            "server_valid": self._server_valid,
-            "tool_gid": self._tool_gid,
-            "tool_valid": self._tool_valid,
-            "tool_host_global": self._tool_host_g,
-            "tool_host_local": self._tool_host_l,
-            "q_server": self._to(batch.q_server, _F32),
-            "q_tool": self._to(batch.q_tool, _F32),
-        }
-        if self.rerank:
-            dyn["q_rerank"] = self._to(batch.q_rerank, _F32)
-        if self.tiled:
-            dyn["w_server_tpl"] = self._w_server_tpl
-            dyn["w_tool_tpl"] = self._w_tool_tpl
-            dyn["server_doc_map"] = self._server_doc_sh
-            dyn["tool_doc_map"] = self._tool_doc_sh
-            if self.compact_stage2:
-                dyn["tool_start_g"] = self._tool_start_g
-                dyn["tool_count_g"] = self._tool_count_g
-                dyn["tool_doc0_g"] = self._tool_doc0_g
-        else:
-            dyn["w_server"] = self._w_server_sh
-            dyn["w_tool"] = self._w_tool_sh
-        if self.uses_network:
-            if telemetry_templates is not None:
-                compact, tmap = telemetry_templates
-                dyn["lat_t"] = self._to(compact, _F32)
-                dyn["tel_map"] = self._to(
-                    np.asarray(tmap, np.int32)[self.plan.server_gid], torch.int32)
-            elif latency_hist is not None:
-                dyn["lat"] = self._shard_hist(latency_hist)
-        if self.uses_load and server_load is not None and self.cfg.gamma != 0.0:
-            dyn["load"] = self._shard_vec(server_load)
-        if self.uses_staleness and telemetry_age_s is not None:
-            dyn["age"] = self._shard_vec(telemetry_age_s)
-        if self.uses_rtt and self.cfg.delta != 0.0:
-            if client_rtt_ms is not None:
-                dyn["rtt"] = self._shard_vec(client_rtt_ms)
-            elif client_region is not None and region_rtt_ms is not None:
-                rr = self._to(region_rtt_ms, _F32)
-                dyn["rtt_region"] = rr[:, self._gid_long].permute(1, 0, 2)  # [J, R, s_pad]
-                dyn["region_idx"] = self._to(client_region, torch.int32)
-        if self.uses_failover and failed_mask is not None:
-            dyn["dead"] = self._shard_vec(np.asarray(failed_mask, np.float32))
-        if self.uses_affinity and affinity is not None and self.cfg.eps != 0.0:
-            dyn["aff"] = self._shard_vec(affinity)
-        adapt_w = None if self.learner is None else self.learner.pending_weights()
-        if adapt_w is not None:
-            dyn["adapt_w"] = adapt_w
-        with torch.profiler.record_function("netmcp.route_sharded"):
-            server_idx, tool_idx, c, n, s = _route_sharded(dyn, self._sc)
+        tracer = self.obs.tracer
+        with tracer.span("netmcp.route_prep", cat="routing", args={"n": batch.n}):
+            check_n_real(batch, n_real)
+            if batch.n == 0:
+                z = np.zeros((0,), np.float32)
+                return BatchDecisions(
+                    server_idx=z.astype(np.int32), tool_idx=z.astype(np.int32),
+                    expertise=z, network=z, fused=z, select_latency_ms=self.select_latency_ms(),
+                )
+            dyn: dict = {
+                "tool_server": self._tool_server,
+                "server_gid": self._server_gid,
+                "server_valid": self._server_valid,
+                "tool_gid": self._tool_gid,
+                "tool_valid": self._tool_valid,
+                "tool_host_global": self._tool_host_g,
+                "tool_host_local": self._tool_host_l,
+                "q_server": self._to(batch.q_server, _F32),
+                "q_tool": self._to(batch.q_tool, _F32),
+            }
+            if self.rerank:
+                dyn["q_rerank"] = self._to(batch.q_rerank, _F32)
+            if self.tiled:
+                dyn["w_server_tpl"] = self._w_server_tpl
+                dyn["w_tool_tpl"] = self._w_tool_tpl
+                dyn["server_doc_map"] = self._server_doc_sh
+                dyn["tool_doc_map"] = self._tool_doc_sh
+                if self.compact_stage2:
+                    dyn["tool_start_g"] = self._tool_start_g
+                    dyn["tool_count_g"] = self._tool_count_g
+                    dyn["tool_doc0_g"] = self._tool_doc0_g
+            else:
+                dyn["w_server"] = self._w_server_sh
+                dyn["w_tool"] = self._w_tool_sh
+            if self.uses_network:
+                if telemetry_templates is not None:
+                    compact, tmap = telemetry_templates
+                    dyn["lat_t"] = self._to(compact, _F32)
+                    dyn["tel_map"] = self._to(
+                        np.asarray(tmap, np.int32)[self.plan.server_gid], torch.int32)
+                elif latency_hist is not None:
+                    dyn["lat"] = self._shard_hist(latency_hist)
+            if self.uses_load and server_load is not None and self.cfg.gamma != 0.0:
+                dyn["load"] = self._shard_vec(server_load)
+            if self.uses_staleness and telemetry_age_s is not None:
+                dyn["age"] = self._shard_vec(telemetry_age_s)
+            if self.uses_rtt and self.cfg.delta != 0.0:
+                if client_rtt_ms is not None:
+                    dyn["rtt"] = self._shard_vec(client_rtt_ms)
+                elif client_region is not None and region_rtt_ms is not None:
+                    rr = self._to(region_rtt_ms, _F32)
+                    dyn["rtt_region"] = rr[:, self._gid_long].permute(1, 0, 2)  # [J, R, s_pad]
+                    dyn["region_idx"] = self._to(client_region, torch.int32)
+            if self.uses_failover and failed_mask is not None:
+                dyn["dead"] = self._shard_vec(np.asarray(failed_mask, np.float32))
+            if self.uses_affinity and affinity is not None and self.cfg.eps != 0.0:
+                dyn["aff"] = self._shard_vec(affinity)
+            adapt_w = None if self.learner is None else self.learner.pending_weights()
+            if adapt_w is not None:
+                dyn["adapt_w"] = adapt_w
+        with tracer.span("netmcp.route_sharded", cat="routing"):
+            server_idx, tool_idx, c, n, s = _route_sharded(dyn, self._sc, tracer)
         if route_stats is not None:
             # this call's device outputs, before any host conversion
             route_stats.accumulate(server_idx, c, n, s, n_real=n_real)
-        return BatchDecisions(
-            server_idx=server_idx.cpu().numpy().astype(np.int32),
-            tool_idx=tool_idx.cpu().numpy().astype(np.int32),
-            expertise=c.cpu().numpy(), network=n.cpu().numpy(), fused=s.cpu().numpy(),
-            select_latency_ms=self.select_latency_ms(),
-        )
+        with tracer.span("netmcp.route_fetch", cat="routing"):
+            return BatchDecisions(
+                server_idx=server_idx.cpu().numpy().astype(np.int32),
+                tool_idx=tool_idx.cpu().numpy().astype(np.int32),
+                expertise=c.cpu().numpy(), network=n.cpu().numpy(), fused=s.cpu().numpy(),
+                select_latency_ms=self.select_latency_ms(),
+            )
 
     def route_texts(
         self,

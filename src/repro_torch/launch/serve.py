@@ -25,7 +25,9 @@ Two modes:
 Observability: per-request lines go through structured logging (suppress
 with ``--quiet``; the summary line always prints), ``--metrics-json PATH``
 writes the `MetricsRegistry` snapshot (with the folded route stats),
-``--trace PATH`` a Chrome trace of every request's lifecycle spans, and
+``--trace PATH`` a Chrome trace of every request's lifecycle spans (in
+``--mode online`` on `torch.profiler`'s axis, ms on the Unix epoch, so it
+lines up in Perfetto with a `torch.profiler` export of the same run), and
 ``--dashboard`` repaints a live text panel while the online run
 progresses.  ``--device`` picks where everything runs: the CUDA card by
 default (it raises without one), ``cpu`` for the plain PyTorch versions of
@@ -291,7 +293,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--metrics-json", type=str, default=None,
                     help="write the metrics-registry snapshot to PATH")
     ap.add_argument("--trace", type=str, default=None,
-                    help="write a Chrome trace (Perfetto-loadable) to PATH")
+                    help="write a Chrome trace (Perfetto-loadable) to PATH; in --mode "
+                         "online on torch.profiler's clock, so it lines up with a "
+                         "torch.profiler export of the same run")
     ap.add_argument("--dashboard", action="store_true",
                     help="live text dashboard during --mode online")
     return ap

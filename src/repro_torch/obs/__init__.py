@@ -3,8 +3,13 @@
 The serving stack accepts one `Observability` bundle and threads it
 through every layer:
 
-  * `SpanTracer` (`repro_torch.obs.trace`): request-lifecycle spans with
-    Chrome trace-event export (Perfetto-loadable).
+  * `SpanTracer` (`repro_torch.obs.trace`): request-lifecycle and stage
+    spans with Chrome trace-event export (Perfetto-loadable).  Its
+    `span(name)` also opens the `torch.profiler` label ``name``, and its
+    default clock is the profiler's axis (ms on the Unix epoch), so the
+    program's trace lines up in Perfetto with a `torch.profiler` export
+    of the same run (whose ``ts`` are offset by its
+    ``baseTimeNanoseconds``).
   * `MetricsRegistry` (`repro_torch.obs.metrics`): counters, gauges and
     log-bucket histograms, the one source of the gateway's, micro-batcher's,
     front end's, engine's and simulators' counts.
@@ -69,7 +74,8 @@ class Observability:
     Parameters
     ----------
     trace : bool
-        Record lifecycle spans (a disabled tracer costs one check per site).
+        Record lifecycle and stage spans (a disabled tracer costs one check
+        per site beside the profiler label its `span` opens).
     jit_stats : bool
         Thread a `DeviceRouteStats` through the routing engines (device
         accumulation, host fold at flush boundaries).  The reference's name
@@ -79,7 +85,8 @@ class Observability:
     registry : MetricsRegistry, optional
         Share an existing registry; default creates a fresh one.
     clock_ms : callable, optional
-        Timeline for the tracer; default wall clock.
+        Timeline for the tracer; default `repro_torch.obs.trace.now_ms`,
+        the profiler's axis.
     """
 
     def __init__(

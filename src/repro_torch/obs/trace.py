@@ -3,13 +3,22 @@
 `SpanTracer` records complete ("X"), instant ("i") and counter ("C")
 events on one timeline in milliseconds of the caller's clock, bounded by
 ``max_events`` (drops are counted); `to_chrome_trace()` emits the Trace
-Event Format JSON that Perfetto loads.  A disabled tracer's `span()`
-returns a cached no-op context manager, so call sites cost one attribute
-check.
+Event Format JSON that Perfetto loads.
+
+`SpanTracer.span(name)` is the program's one call for a stage: it always
+opens the `torch.profiler.record_function` label ``name``, and when the
+tracer is enabled it also records an X event of that name.  The default
+clock (`now_ms`) is the profiler's axis, ms on the Unix epoch, read
+through `time.perf_counter` plus one offset taken at import, so a span
+and its label start within microseconds of each other and the program's
+trace lines up with a `torch.profiler` trace (an export's ``ts`` plus its
+``baseTimeNanoseconds`` / 1000 is the ``ts`` written here).  A disabled
+tracer's `span()` costs the label and one attribute check.
 
 The reference's `annotate` hook (`jax.profiler.TraceAnnotation` around
 the jit hot paths, behind a switch) is `torch.profiler.record_function`
-here, always on: it costs next to nothing without an active profiler.
+here, always on: it costs next to nothing without an active profiler;
+it stays for model-level labels that have no tracer in reach.
 `emit_flush_spans` / `emit_request_spans` are the serving drivers' span
 emitters, `emit_chaos_events` renders a fault schedule for the traffic
 simulators.
@@ -29,32 +38,37 @@ __all__ = [
     "emit_chaos_events",
     "emit_flush_spans",
     "emit_request_spans",
+    "now_ms",
 ]
 
 
-def _wall_ms() -> float:
-    return 1000.0 * time.perf_counter()
+def _epoch_offset_ms() -> float:
+    """Unix-epoch ms minus `time.perf_counter` ms, from the tightest of a
+    few bracketed reads."""
+    best = None
+    for _ in range(8):
+        a = time.perf_counter_ns()
+        wall = time.time_ns()
+        b = time.perf_counter_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, wall - (a + b) // 2)
+    return best[1] / 1e6
 
 
-class _NoopSpan:
-    """Reusable no-op context manager for disabled tracers."""
-
-    __slots__ = ()
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        return False
+_EPOCH_OFFSET_MS = _epoch_offset_ms()
 
 
-_NOOP_SPAN = _NoopSpan()
+def now_ms() -> float:
+    """The default clock: ms on the Unix epoch, `torch.profiler`'s axis,
+    with `time.perf_counter`'s monotonic resolution."""
+    return 1000.0 * time.perf_counter() + _EPOCH_OFFSET_MS
 
 
 class _LiveSpan:
-    """Context manager that records one X event on exit."""
+    """Context manager that opens the label ``name`` and records one X
+    event of the same name on exit."""
 
-    __slots__ = ("tracer", "name", "cat", "tid", "args", "t0")
+    __slots__ = ("tracer", "name", "cat", "tid", "args", "t0", "label")
 
     def __init__(self, tracer, name, cat, tid, args):
         self.tracer = tracer
@@ -63,14 +77,24 @@ class _LiveSpan:
         self.tid = tid
         self.args = args
         self.t0 = 0.0
+        self.label = torch.profiler.record_function(name)
 
+    # Each end is stamped before and after the label's call and set to the
+    # midpoint: under an active profiler the call costs tens of
+    # microseconds, and the label stamps its own time somewhere inside it.
     def __enter__(self):
-        self.t0 = self.tracer.clock_ms()
+        clock = self.tracer.clock_ms
+        before = clock()
+        self.label.__enter__()
+        self.t0 = 0.5 * (before + clock())
         return self
 
     def __exit__(self, *exc):
+        clock = self.tracer.clock_ms
+        before = clock()
+        self.label.__exit__(*exc)
         self.tracer.add_span(
-            self.name, self.t0, self.tracer.clock_ms(),
+            self.name, self.t0, 0.5 * (before + clock()),
             cat=self.cat, tid=self.tid, args=self.args,
         )
         return False
@@ -82,13 +106,14 @@ class SpanTracer:
     Parameters
     ----------
     enabled : bool
-        A disabled tracer records nothing and costs one attribute check
-        per call site.
+        A disabled tracer records nothing; its `span()` still opens the
+        profiler label, and each call site costs that and one attribute
+        check.
     clock_ms : callable, optional
         ``() -> float`` returning the current time in **ms**.  Default is
-        a wall clock (`time.perf_counter`); callers with their own
-        timeline (virtual-time pump, discrete-event simulator) pass
-        theirs so every span lands on one consistent axis.
+        `now_ms`, the profiler's axis; callers with their own timeline
+        (virtual-time pump, discrete-event simulator) pass theirs so
+        every span lands on one consistent axis.
     pid : str
         Process name grouping the events in the Perfetto UI.
     max_events : int
@@ -103,7 +128,7 @@ class SpanTracer:
         max_events: int = 200_000,
     ):
         self.enabled = enabled
-        self.clock_ms = clock_ms if clock_ms is not None else _wall_ms
+        self.clock_ms = clock_ms if clock_ms is not None else now_ms
         self.pid = pid
         self.max_events = int(max_events)
         self.events: list = []
@@ -118,9 +143,12 @@ class SpanTracer:
 
     def span(self, name: str, cat: str = "serving", tid=0,
              args: Optional[dict] = None):
-        """Context manager timing a block on this tracer's clock."""
+        """Context manager over a block: the profiler label ``name``
+        always, and when enabled an X event of that name on this
+        tracer's clock (the entered span's ``t0`` and ``args`` may be
+        read and filled inside the block)."""
         if not self.enabled:
-            return _NOOP_SPAN
+            return torch.profiler.record_function(name)
         return _LiveSpan(self, name, cat, tid, args)
 
     def add_span(self, name: str, t0_ms: float, t1_ms: float, *,

@@ -98,6 +98,7 @@ class Request:
     # filled by the engine:
     generated: list = dataclasses.field(default_factory=list)
     done: bool = False
+    submitted_ms: Optional[float] = None   # on the tracer's clock, when it is on
 
 
 class ServeEngine:
@@ -116,8 +117,15 @@ class ServeEngine:
     obs : repro_torch.obs.Observability, optional
         Shared registry and tracer: the engine counts admissions,
         completions, steps and tokens and keeps active-slot and
-        queue-depth gauges under the reference's names; prefill and
-        decode spans are recorded when the tracer is on.
+        queue-depth gauges under the reference's names.  Its tracer's
+        spans (profiler labels always, events when the tracer is on):
+        ``netmcp.admit`` per request (popped from the queue to its first
+        token on the host; args rid, slot, prompt_len and wait_ms, the
+        time since `submit`) holding ``netmcp.prefill`` and
+        ``netmcp.slot_insert`` (pad to ``cap``, copy into the slot); per
+        step ``netmcp.decode_step`` (the host issuing the decode) then
+        ``netmcp.decode_read`` (the tokens' host read, the slots' update,
+        eviction).
     device : None, str or torch.device
         Where the engine runs; None is the CUDA card and raises without one.
     """
@@ -192,6 +200,8 @@ class ServeEngine:
             raise ValueError(f"ServeEngine: prompt of {len(req.tokens)} tokens "
                              f"({n} prefill positions); 1 to {self.cap - 1 - self.n_prefix} "
                              f"tokens fit a slot of {self.cap}")
+        if self.obs.tracer.enabled:
+            req.submitted_ms = self.obs.tracer.clock_ms()
         self.queue.append(req)
         self._m_queue.set(len(self.queue))
 
@@ -201,21 +211,27 @@ class ServeEngine:
         return torch.argmax(logits, dim=-1).tolist()
 
     def _admit(self):
+        tracer = self.obs.tracer
         for slot in range(self.n_slots):
             if self.slot_req[slot] is None and self.queue:
-                req = self.queue.popleft()
-                batch = {k: torch.as_tensor(v[None], device=self.device)
-                         for k, v in self._extras(req).items()}
-                batch["tokens"] = torch.as_tensor(np.asarray(req.tokens, np.int64)[None, :],
-                                                  device=self.device)
-                with self.obs.tracer.span(
-                    "prefill", cat="engine", args={"rid": req.rid}
-                ), torch.profiler.record_function("netmcp.prefill"):
-                    logits, cache1 = self.model.prefill(self.params, batch)
-                cache1 = pad_cache_to_capacity(cache1, self.axes, self.cap)
-                insert_slot(self.cache, self.axes, cache1, slot)
-                tok = self._next_tokens(logits[:, -1], [req])[0]
-                req.generated.append(tok)
+                req = self.queue[0]
+                with tracer.span("netmcp.admit", cat="engine", args={
+                    "rid": req.rid, "slot": slot, "prompt_len": len(req.tokens),
+                }) as admit:
+                    self.queue.popleft()
+                    if tracer.enabled and req.submitted_ms is not None:
+                        admit.args["wait_ms"] = admit.t0 - req.submitted_ms
+                    batch = {k: torch.as_tensor(v[None], device=self.device)
+                             for k, v in self._extras(req).items()}
+                    batch["tokens"] = torch.as_tensor(
+                        np.asarray(req.tokens, np.int64)[None, :], device=self.device)
+                    with tracer.span("netmcp.prefill", cat="engine", args={"rid": req.rid}):
+                        logits, cache1 = self.model.prefill(self.params, batch)
+                    with tracer.span("netmcp.slot_insert", cat="engine"):
+                        cache1 = pad_cache_to_capacity(cache1, self.axes, self.cap)
+                        insert_slot(self.cache, self.axes, cache1, slot)
+                    tok = self._next_tokens(logits[:, -1], [req])[0]
+                    req.generated.append(tok)
                 self.slot_req[slot] = req
                 self.slot_len[slot] = self.n_prefix + len(req.tokens)
                 self.last_token[slot, 0] = tok
@@ -243,22 +259,22 @@ class ServeEngine:
         # cache_len is uniform per decode call, as in the reference: every
         # slot decodes at the largest active length
         cache_len = int(self.slot_len[active].max())
-        with self.obs.tracer.span(
-            "decode_step", cat="engine", args={"active": len(active)}
-        ), torch.profiler.record_function("netmcp.decode_step"):
+        tracer = self.obs.tracer
+        with tracer.span("netmcp.decode_step", cat="engine", args={"active": len(active)}):
             logits, self.cache = self.model.decode_step(
                 self.params, self.cache, torch.as_tensor(self.last_token, device=self.device),
                 cache_len,
             )
-        toks = self._next_tokens(logits[:, -1], self.slot_req)
-        for slot in active:
-            req = self.slot_req[slot]
-            req.generated.append(int(toks[slot]))
-            self.slot_len[slot] += 1
-            self.last_token[slot, 0] = int(toks[slot])
-        self._m_steps.inc()
-        self._m_tokens.inc(len(active))
-        self._evict()
+        with tracer.span("netmcp.decode_read", cat="engine"):
+            toks = self._next_tokens(logits[:, -1], self.slot_req)
+            for slot in active:
+                req = self.slot_req[slot]
+                req.generated.append(int(toks[slot]))
+                self.slot_len[slot] += 1
+                self.last_token[slot, 0] = int(toks[slot])
+            self._m_steps.inc()
+            self._m_tokens.inc(len(active))
+            self._evict()
         return True
 
     def run(self, max_steps: int = 10_000):

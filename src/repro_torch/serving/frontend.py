@@ -21,9 +21,9 @@ its feed-forward state.
 from __future__ import annotations
 
 import asyncio
-import time
 from typing import Optional
 
+from repro_torch.obs.trace import now_ms as trace_now_ms
 from repro_torch.serving.microbatch import (
     BatchingPolicy,
     MicroBatcher,
@@ -67,7 +67,6 @@ class AsyncServingGateway:
         )
         self._m_serve = self.obs.registry.histogram("serving_latency_ms", "ms")
         if self.obs.tracer.enabled:
-            # wall-clock timeline: ms since this front-end started
             self.obs.tracer.clock_ms = self.now_ms
         self._futures: dict = {}          # rid -> asyncio.Future[ServeResult]
         self._next_rid = 0
@@ -75,12 +74,14 @@ class AsyncServingGateway:
         self._pump_task: Optional[asyncio.Task] = None
         self._closing = False
         self._drain = True
-        self._t0 = time.monotonic()
         self.n_flushes = 0
 
-    def now_ms(self) -> float:
-        """Wall-clock ms since the gateway was constructed."""
-        return 1000.0 * (time.monotonic() - self._t0)
+    @staticmethod
+    def now_ms() -> float:
+        """Wall-clock ms on the tracers' shared axis (`torch.profiler`'s,
+        ms on the Unix epoch): arrivals, deadlines and flushes are
+        stamped on it."""
+        return trace_now_ms()
 
     async def start(self) -> None:
         """Start the pump coroutine (idempotent)."""

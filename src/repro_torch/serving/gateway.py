@@ -32,7 +32,7 @@ from repro_torch.core.dataset import Server, Tool
 from repro_torch.core.mesh_routing import ShardedRoutingEngine
 from repro_torch.core.qos import load_penalty, rtt_penalty
 from repro_torch.core.routing import ALGORITHMS, RoutingConfig, SonarRouter  # noqa: F401
-from repro_torch.obs import Observability, annotate
+from repro_torch.obs import Observability
 from repro_torch.sessions.warmth import WarmthTracker
 
 ARCH_CAPABILITIES = {
@@ -128,8 +128,7 @@ class DeviceTelemetry:
 
     def push(self, col: np.ndarray) -> None:
         c = torch.from_numpy(np.asarray(col, np.float32)).to(self.device)
-        with annotate("netmcp.telemetry_push"):
-            self._buf[:, self._head] = c.to(self.dtype)
+        self._buf[:, self._head] = c.to(self.dtype)
         self._head = (self._head + 1) % self._buf.shape[1]
         self._window = None
         self._host = None

@@ -38,7 +38,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from repro_torch.obs.trace import emit_chaos_events
+from repro_torch.obs.trace import emit_chaos_events  # noqa: F401  (the reference's re-export)
 from repro_torch.sessions.dag import SessionDAG, critical_path
 from repro_torch.sessions.warmth import WarmthTracker
 from repro_torch.traffic.simulator import (
@@ -55,7 +55,7 @@ class _SessionState:
     """Live bookkeeping for one in-flight session."""
 
     __slots__ = ("dag", "requests", "children", "pending_parents",
-                 "resolved", "released", "critical", "t_arrival_ms",
+                 "resolved", "released", "t_arrival_ms",
                  "t_done_ms", "failed")
 
     def __init__(self, dag: SessionDAG, requests: list):
@@ -67,7 +67,6 @@ class _SessionState:
         }
         self.resolved: dict = {}            # node_id -> outcome str
         self.released: set = set()
-        self.critical = critical_path(dag)
         self.t_arrival_ms = 1000.0 * dag.t_arrival_s
         self.t_done_ms = self.t_arrival_ms
         self.failed = False
@@ -208,13 +207,6 @@ class SessionTrafficSim(FleetTrafficSim):
             # session's context warm
             self.warmth.touch(req.session_id, req.server_idx,
                               req.t_finish_ms)
-            if self.obs.tracer.enabled:
-                self.obs.tracer.add_span(
-                    f"node:{nid}", req.t_arrival_ms, req.t_finish_ms,
-                    cat="session", pid="sessions", tid=req.session_id,
-                    args={"server": req.server_idx,
-                          "critical": nid in st.critical},
-                )
             if not st.failed:
                 for c in st.children[nid]:
                     st.pending_parents[c] -= 1
@@ -236,18 +228,11 @@ class SessionTrafficSim(FleetTrafficSim):
             self._settle_session(st)
 
     def _settle_session(self, st: _SessionState) -> None:
-        sid = st.dag.session_id
         if st.succeeded:
             self._m_task_ok.inc()
         else:
             self._m_task_fail.inc()
-        if self.obs.tracer.enabled:
-            self.obs.tracer.add_span(
-                f"session:{st.dag.template}", st.t_arrival_ms,
-                st.t_done_ms, cat="session", pid="sessions", tid=sid,
-                args={"ok": st.succeeded, "n_nodes": st.dag.n_nodes},
-            )
-        self.warmth.forget(sid)
+        self.warmth.forget(st.dag.session_id)
 
     # -- event-hook overrides ------------------------------------------------
     def _start_service(self, disp, now_ms: float) -> None:
@@ -304,11 +289,6 @@ class SessionTrafficSim(FleetTrafficSim):
             self._m_tasks.inc()
             for root in dag.roots():
                 self._release(st, root, st.t_arrival_ms)
-
-        if self.obs.tracer.enabled:
-            emit_chaos_events(
-                self.obs.tracer, self.platform.chaos, self.platform.dt_s
-            )
 
         while self._heap:
             t_ms, _, kind, payload = heapq.heappop(self._heap)

@@ -15,6 +15,8 @@ import torch
 
 from repro_torch import tree
 from repro_torch.models.api import Model
+from repro_torch.obs import Observability
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.training.optimizer import AdamW, quantize_grads
 
 
@@ -37,16 +39,23 @@ def _grads(model: Model, params, batch):
     return loss.detach(), metrics, tree.unflatten(params, grads)
 
 
-def make_train_step(model: Model, opt: AdamW, grad_compression_bits: Optional[int] = None):
+def make_train_step(model: Model, opt: AdamW, grad_compression_bits: Optional[int] = None,
+                    obs: Optional[Observability] = None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "grad_norm", **metrics}); ``params`` and the moments are
-    updated in place and returned."""
+    updated in place and returned.  The step runs under the span
+    ``netmcp.train_step`` of ``obs``'s tracer (a disabled one by default:
+    the profiler labels alone), the optimizer's update under
+    ``netmcp.optimizer`` inside it."""
+    tracer = obs.tracer if obs is not None else NULL_TRACER
 
     def train_step(params, opt_state, batch):
-        loss, metrics, grads = _grads(model, params, batch)
-        if grad_compression_bits:
-            grads = quantize_grads(grads, grad_compression_bits)
-        params, opt_state, gnorm = opt.update(grads, opt_state, params)
+        with tracer.span("netmcp.train_step", cat="training"):
+            loss, metrics, grads = _grads(model, params, batch)
+            if grad_compression_bits:
+                grads = quantize_grads(grads, grad_compression_bits)
+            with tracer.span("netmcp.optimizer", cat="training"):
+                params, opt_state, gnorm = opt.update(grads, opt_state, params)
         out = {"loss": loss, "grad_norm": gnorm, **metrics}
         return params, opt_state, out
 

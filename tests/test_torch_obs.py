@@ -10,8 +10,13 @@ bit for all nine algorithms and three failed-mask kinds, and its terms
 must equal the reference's audit of the same decision within the parity
 contract (rtol 2e-6 / atol 2e-7).  `render_dashboard` must give the
 reference's panel line for line on the same snapshot, but for the clock.
+`SpanTracer.span` opens its profiler label whether the tracer is on or
+off, starts its event within 1 ms of the label on the CPU profiler's
+clock, and leaves a caller's own clock alone; the sharded engine's spans
+come in the order of its stages.
 """
 import io
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -40,6 +45,7 @@ from repro_torch.obs import (
     Observability,
     render_dashboard,
 )
+from repro_torch.obs import trace
 from repro_torch.serving import BatchingPolicy, MicroBatchPump, SonarGateway, replica_pool
 from repro_torch.traffic import replica_fleet
 from repro_torch.traffic.source import request_schedule
@@ -360,3 +366,108 @@ def test_live_dashboard_repaints_in_place(pump_run):
     text = out.getvalue()
     assert "live" in text and "mean C / N / S" in text
     assert "\x1b[" in text                       # ANSI in-place repaint
+
+
+# ---------------------------------------------------------------------------
+# The span call: one profiler label, one clock
+# ---------------------------------------------------------------------------
+
+def _labels(prof) -> dict:
+    """Profiler label name -> [start_ns] of its host ranges."""
+    out: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.is_user_annotation() and e.device_type() == torch.autograd.DeviceType.CPU:
+            out.setdefault(e.name(), []).append(e.start_ns())
+    return out
+
+
+def _profiled(fn):
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+    return _labels(prof)
+
+
+def test_disabled_span_records_nothing_and_still_opens_the_label():
+    off = trace.SpanTracer(enabled=False)
+
+    def run():
+        with off.span("netmcp.off", args={"k": 1}):
+            torch.ones(4).sum()
+
+    labels = _profiled(run)
+    assert off.events == [] and len(labels["netmcp.off"]) == 1
+
+
+def test_enabled_span_starts_with_its_label_on_the_profilers_axis():
+    on = trace.SpanTracer(enabled=True)
+    assert on.clock_ms is trace.now_ms
+
+    def run():
+        for i in range(5):
+            with on.span(f"netmcp.on{i}", cat="t", args={"i": i}) as sp:
+                assert sp.args == {"i": i}
+                torch.ones(4).sum()
+
+    labels = _profiled(run)
+    assert [e["name"] for e in on.events] == [f"netmcp.on{i}" for i in range(5)]
+    for e in on.events:
+        (start_ns,) = labels[e["name"]]
+        assert abs(e["ts"] - start_ns / 1e3) < 1000.0, (e["name"], e["ts"], start_ns)
+        assert e["dur"] >= 0.0 and e["cat"] == "t"
+    # the axis is the Unix epoch's, in ms
+    assert abs(trace.now_ms() - time.time() * 1e3) < 50.0
+
+
+def test_span_leaves_a_callers_virtual_clock_alone():
+    clock = iter([10.0, 10.0, 12.5, 12.5])
+    virt = trace.SpanTracer(clock_ms=lambda: next(clock))
+    fn = virt.clock_ms
+    with virt.span("x", cat="sim"):
+        pass
+    assert virt.clock_ms is fn
+    (ev,) = virt.events
+    assert (ev["name"], ev["ts"], ev["dur"]) == ("x", 10000.0, 2500.0)
+    assert Observability(clock_ms=lambda: 0.0).tracer.clock_ms() == 0.0
+
+
+# ---------------------------------------------------------------------------
+# The sharded engine's spans
+# ---------------------------------------------------------------------------
+
+def test_sharded_engine_spans_in_order():
+    obs = Observability(trace=True)
+    eng = ShardedRoutingEngine(POOL, RoutingConfig(top_s=4, top_k=5), algo="sonar_ft",
+                               n_shards=3, device=CPU, obs=obs)
+    n = len(POOL)
+    rng = np.random.default_rng(3)
+    lat = rng.uniform(20.0, 200.0, (n, 16)).astype(np.float32)
+    eng.route_texts(TEXTS, lat, server_load=rng.uniform(0, 1, n),
+                    telemetry_age_s=rng.uniform(0, 30, n), failed_mask=rng.random(n) < 0.2)
+    ev = obs.tracer.events
+    names = [e["name"] for e in ev]
+    assert names == ["netmcp.encode.intent", "netmcp.encode.terms", "netmcp.encode",
+                     "netmcp.route_prep", "netmcp.route.score", "netmcp.route.stage1",
+                     "netmcp.route.stage2", "netmcp.route.select", "netmcp.route_sharded",
+                     "netmcp.route_fetch"]
+    by = {e["name"]: e for e in ev}
+
+    def end(e):
+        return e["ts"] + e["dur"]
+
+    def inside(inner, outer):
+        return by[outer]["ts"] <= by[inner]["ts"] and end(by[inner]) <= end(by[outer])
+
+    assert inside("netmcp.encode.intent", "netmcp.encode")
+    assert inside("netmcp.encode.terms", "netmcp.encode")
+    stages = ["netmcp.route.score", "netmcp.route.stage1", "netmcp.route.stage2",
+              "netmcp.route.select"]
+    assert all(inside(s, "netmcp.route_sharded") for s in stages)
+    order = ["netmcp.encode", "netmcp.route_prep", *stages, "netmcp.route_fetch"]
+    assert all(end(by[a]) <= by[b]["ts"] for a, b in zip(order, order[1:]))
+    assert by["netmcp.route_prep"]["args"] == {"n": len(TEXTS)}
+    # the default is a disabled tracer: the same labels, no events
+    quiet = ShardedRoutingEngine(POOL, RoutingConfig(top_s=4, top_k=5), algo="sonar_ft",
+                                 n_shards=3, device=CPU)
+    assert not quiet.obs.tracer.enabled
+    labels = _profiled(lambda: quiet.route_texts(TEXTS, lat))
+    assert set(names) <= set(labels) and quiet.obs.tracer.events == []

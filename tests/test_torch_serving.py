@@ -121,10 +121,50 @@ def test_drain_pending_and_tracer():
     assert reg.value("engine_admitted_total") == 3 == reg.value("engine_completed_total")
     assert reg.value("engine_tokens_total") == 12
     names = [e["name"] for e in eng.obs.tracer.events]
-    assert names.count("prefill") == 3 and names.count("decode_step") == 1 + steps
+    assert names.count("netmcp.prefill") == 3 and names.count("netmcp.decode_step") == 1 + steps
     with pytest.raises(RuntimeError, match="drain incomplete"):
         eng.submit(Request(rid=9, tokens=prompts[0], max_new_tokens=20))
         eng.drain(max_steps=2)
+
+
+def test_engine_spans_nest_and_carry_the_wait():
+    """With the tracer on: one ``netmcp.admit`` per request (rid, slot,
+    prompt_len, wait_ms since submit) holding its prefill and slot insert,
+    and each decode step's ``decode_step`` followed by its ``decode_read``."""
+    _, _, cfg, p = _models("internlm2-1.8b")
+    obs = Observability(trace=True)
+    eng = ServeEngine(get_model(cfg), p, n_slots=2, cap=32, device="cpu", obs=obs)
+    prompts = _prompts(3, [5, 7], 4, cfg.vocab_size)
+    reqs = [Request(rid=10 + i, tokens=t, max_new_tokens=3) for i, t in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+        assert r.submitted_ms is not None
+    steps = eng.drain()
+    ev = obs.tracer.events
+
+    def end(e):
+        return e["ts"] + e["dur"]
+
+    admits = [e for e in ev if e["name"] == "netmcp.admit"]
+    assert [a["args"]["rid"] for a in admits] == [10, 11, 12]
+    assert [a["args"]["slot"] for a in admits] == [0, 1, 0]
+    assert [a["args"]["prompt_len"] for a in admits] == [5, 7, 5]
+    for a, r in zip(admits, reqs):
+        assert a["args"]["wait_ms"] == pytest.approx(a["ts"] / 1e3 - r.submitted_ms)
+        assert a["args"]["wait_ms"] >= 0.0
+        inner = [e["name"] for e in ev if e is not a and a["ts"] <= e["ts"] and end(e) <= end(a)]
+        assert inner == ["netmcp.prefill", "netmcp.slot_insert"], inner
+    assert admits[2]["args"]["wait_ms"] > admits[0]["args"]["wait_ms"]   # waited for a slot
+    decode = [e["name"] for e in ev if e["name"] in ("netmcp.decode_step", "netmcp.decode_read")]
+    assert decode == ["netmcp.decode_step", "netmcp.decode_read"] * steps
+    pairs = [e for e in ev if e["name"].startswith("netmcp.decode_")]
+    assert all(end(a) <= b["ts"] for a, b in zip(pairs, pairs[1:]))
+    # off, the engine stamps nothing
+    quiet = ServeEngine(get_model(cfg), p, n_slots=2, cap=32, device="cpu")
+    r = Request(rid=0, tokens=prompts[0], max_new_tokens=2)
+    quiet.submit(r)
+    quiet.drain()
+    assert r.submitted_ms is None and quiet.obs.tracer.events == []
 
 
 def test_cache_helpers_and_device_rule(monkeypatch):

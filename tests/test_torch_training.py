@@ -39,6 +39,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch import train as train_mod
 from repro_torch.models.api import get_model
 from repro_torch.nn import core as nn
+from repro_torch.obs import Observability
 from repro_torch.training.optimizer import (Adafactor, AdafactorState, AdamW, AdamWState,
                                             global_norm, quantize_grads)
 from repro_torch.training.train_step import make_eval_step, make_train_step
@@ -161,6 +162,22 @@ def _descends(arch, steps, bits=None):
 def test_train_step_reduces_loss_end_to_end():
     losses = _descends("internlm2-1.8b", 30)
     assert losses[-1] < losses[0] - 0.1, losses[::10]
+
+
+def test_train_step_spans():
+    """The step runs under ``netmcp.train_step``, the optimizer's update
+    under ``netmcp.optimizer`` inside it."""
+    cfg = dataclasses.replace(configs.get_reduced("internlm2-1.8b"), dtype="float32")
+    model = get_model(cfg)
+    opt = AdamW(lr=3e-3, warmup_steps=5)
+    params = model.init_params(seed=0, device="cpu")
+    obs = Observability(trace=True)
+    step = make_train_step(model, opt, obs=obs)
+    dc = pipeline.DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=2)
+    step(params, opt.init(params), pipeline.make_batch(dc, 0))
+    inner, outer = obs.tracer.events
+    assert (inner["name"], outer["name"]) == ("netmcp.optimizer", "netmcp.train_step")
+    assert outer["ts"] <= inner["ts"] and inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
 
 
 def test_grad_compression_trains():
