@@ -49,7 +49,11 @@ depth.
    bit for bit at the mega tail's [256, 16], a dense-shard merge
    [256, 4 x 16] and the full tool axis [256, 20010], and on edge rows
    (-0/+0 ties, all equal, all -inf, all NEG) at widths 16, 257 and 20010;
-   ``qos_scores`` on the shared and per-query windows, a [n, 63] window and
+   ``stage1_topk`` (values bit for bit, ids equal, against its plain
+   version on CPU copies) on a mega SONAR-FT route's stage-1 operands
+   ([4, 250000] servers, 256 queries, 5 % dead, k 8) read tiled and dense,
+   and on edge rows past two scan chunks (-0/+0, +-inf, NaN, per-query and
+   NaN dead, pads, k 128); ``qos_scores`` on the shared and per-query windows, a [n, 63] window and
    a view that is not 16-byte aligned; the attention kernels at the serving
    shapes (flash prefill [1, 16, S, 128] against 8 kv heads in the model's
    strided layout, S 2048, 1000 and the launcher's 16; flash decode of 8
@@ -73,8 +77,8 @@ depth.
    step, a failover loop, and a sample of decisions against the scalar
    router;
 3b. the mega-fleet path with the counters set to 0 again: nine algorithms
-   on the kernel path equal to the plain path, ``fused_select`` launched
-   once per sharded route; then the sharded engine against the densified
+   on the kernel path equal to the plain path, ``fused_select`` and
+   ``stage1_topk`` launched once per sharded route; then the sharded engine against the densified
    single engine at 100,000 servers, and SONAR-ADAPT feedback rounds
    (lr > 0) on both engines, kernel path against plain path;
 3c. the serving path with the counters set to 0 again: 16 requests
@@ -1181,6 +1185,61 @@ def main(rehearse: bool) -> None:
                 "equal, C, N, S bit-equal to the plain version")
         max_err["fused_select"] = 0.0
 
+        # stage1_topk at the mega route's shape, on the operands a sonar_ft
+        # route hands it (template scores [n_q, 15], doc map, 5 % dead, 4
+        # shards), read tiled and dense; and edge rows past two scan chunks:
+        # -0/+0, +-inf, NaN, per-query dead (NaN dead too), pads, k 128.
+        # Values bit for bit and ids equal to the plain version run on CPU
+        # copies (the card's torch.sort may order -0 and +0 otherwise)
+        grabbed = []
+        real_s1 = ops.stage1_topk
+
+        def grab_s1(*a, **k):
+            grabbed.append((a, k))
+            return real_s1(*a, **k)
+
+        ops.stage1_topk = grab_s1
+        try:
+            make_sharded_engine("sonar_ft", cfg=mcfg, n_shards=4, index=mindex, device=dev,
+                                use_kernels=True).route_texts(batches[0], **mextras("sonar_ft"))
+        finally:
+            ops.stage1_topk = real_s1
+        (s1_scores, s1_valid, s1_gid, s1_k), s1_kw = grabbed[0]
+        s1_dense = s1_scores[:, s1_kw["doc_map"].long()].permute(1, 0, 2).contiguous()
+        J_e, n_e, S_e = 2, 8, 2 * 8192 + 300
+        specials = torch.tensor([0.0, -0.0, float("inf"), -float("inf"), float("nan"), 1.0, -1.0,
+                                 kref.NEG, 2.0 * kref.NEG], device=dev)
+        e_scores = specials[torch.randint(0, len(specials), (J_e, n_e, S_e), generator=gen,
+                                          device=dev)]
+        e_scores[0, 1] = torch.where(torch.arange(S_e, device=dev) % 2 == 0, -0.0, 0.0)
+        e_dead = (torch.rand((J_e, n_e, S_e), generator=gen, device=dev) < 0.2).float()
+        e_dead[:, :, ::5] = float("nan")
+        e_valid = torch.arange(J_e * S_e, device=dev).reshape(J_e, S_e) < J_e * S_e - 40
+        e_gid = torch.arange(J_e * S_e, device=dev, dtype=torch.int32).reshape(J_e, S_e)
+        s1_cases = {
+            f"mega sonar_ft tiled {list(s1_valid.shape)} x {s1_scores.shape[0]} queries":
+                ((s1_scores, s1_valid, s1_gid, s1_k), s1_kw),
+            f"mega sonar_ft dense {list(s1_dense.shape)}":
+                ((s1_dense, s1_valid, s1_gid, s1_k), dict(dead=s1_kw["dead"])),
+            f"edge rows {[J_e, n_e, S_e]}, per-query dead, k 128":
+                ((e_scores, e_valid, e_gid, 128), dict(dead=e_dead)),
+        }
+        for name, (a, kw) in s1_cases.items():
+            before = ops.launch_counts()["stage1_topk"]
+            got = ops.stage1_topk(*a, **kw)
+            sync()
+            if not rehearse and ops.launch_counts()["stage1_topk"] != before + 1:
+                fail(f"stage1_topk [{name}]: the kernel did not launch once")
+            want = kref.stage1_topk_ref(*(x.cpu() if torch.is_tensor(x) else x for x in a),
+                                        **{n: t.cpu() for n, t in kw.items()})
+            equal(got[0].cpu().view(torch.int32), want[0].view(torch.int32),
+                  f"stage1_topk [{name}] value bits")
+            equal(got[1].cpu(), want[1], f"stage1_topk [{name}] ids")
+            log(f"phase 2: stage1_topk [{name}] k {a[3]}: values bit-equal and ids equal to the "
+                "plain version on CPU copies")
+        del s1_dense, e_scores, e_dead
+        max_err["stage1_topk"] = 0.0
+
         # the attention kernels at the serving paths' shapes: flash prefill of
         # 16 query heads against 8 kv heads, head_dim 128, causal, in the
         # model's [B, S, H, D] layout as strided views (phase 3c's S_att and a
@@ -1402,13 +1461,14 @@ def main(rehearse: bool) -> None:
     log(f"phase 3b: {2 * len(mengines)} sharded engines built in "
         f"{time.perf_counter() - t0:.3f} s: {ek0.plan.n_shards} shards of s_pad "
         f"{ek0.plan.s_pad}, t_pad {ek0.plan.t_pad}, k_slot {ek0._sc.k_slot}")
-    mroutes = {"bm25_scores": 0, "qos_scores": 0, "fused_select": 0}
+    mroutes = {"bm25_scores": 0, "qos_scores": 0, "fused_select": 0, "stage1_topk": 0}
     mdec = {}
     ops.reset_launches()                       # the mega path's count starts here
     t_main = time.perf_counter()
     for algo, (ek, _) in mengines.items():
         mdec[algo] = ek.route_texts(batches[0], **mextras(algo))
         mroutes["fused_select"] += 1
+        mroutes["stage1_topk"] += 1
         mroutes["bm25_scores"] += 2 + int(ek.rerank)
         mroutes["qos_scores"] += int(ek.uses_network)
     sync()
@@ -1719,7 +1779,8 @@ def main(rehearse: bool) -> None:
             sync()
             t_k = time.perf_counter() - t0
             n_calls = len(ck)
-            per = ({"bm25_scores": 2 * n_calls, "qos_scores": n_calls, "fused_select": n_calls}
+            per = ({"bm25_scores": 2 * n_calls, "qos_scores": n_calls, "fused_select": n_calls,
+                    "stage1_topk": n_calls}
                    if shards else
                    {"bm25_scores": n_calls, "qos_scores": n_calls, "fused_score_select": n_calls})
             for name, v in per.items():
@@ -3491,6 +3552,7 @@ def main(rehearse: bool) -> None:
                      "does not run on the tensor cores")
     per_route = {n: launches[n] / max(routes[n], 1) for n in routes}
     per_route["fused_select"] = mlaunches["fused_select"] / max(mroutes["fused_select"], 1)
+    per_route["stage1_topk"] = mlaunches["stage1_topk"] / max(mroutes["stage1_topk"], 1)
     per_route["flash_attention"] = slaunches["flash_attention"] / max(sv["admitted"], 1)
     per_route["decode_attention"] = slaunches["decode_attention"] / max(sv["steps"], 1)
     for r in rows:

@@ -40,7 +40,11 @@ product.  Telemetry can stay compact too
 per template row, gathered per server).  With a tiled index, stage 2 is
 candidate-compacted (`_stage2_compact`): only the <= top_s * k_slot tools
 hosted on the candidate servers are gathered, so no full-tool-axis mask,
-gather or sort runs anywhere; stage 1's fleet-axis sort remains.
+gather or sort runs anywhere.  On the kernel path stage 1 is one
+hand-written selection (`kernels/ops.stage1_topk`) that reads the template
+scores through the doc map in place, so no fleet-sized score matrix is
+written or sorted either; its plain version (`kernels/ref.stage1_topk_ref`)
+gathers the scores and sorts each shard row.
 """
 from __future__ import annotations
 
@@ -76,13 +80,13 @@ from repro_torch.core.routing import (  # noqa: F401  (ALGORITHMS: the reference
     RoutingConfig,
     ToolIndex,
 )
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, stage1_topk
 from repro_torch.kernels import ref as kref
 from repro_torch.obs import Observability
 from repro_torch.obs.trace import NULL_TRACER, SpanTracer
 
 NEG = kref.NEG
-PAD_NEG = 2.0 * NEG   # pad sentinel: sorts strictly below every real score
+PAD_NEG = kref.PAD_NEG   # pad sentinel: sorts strictly below every real score
 _F32 = torch.float32
 
 MESH_NOT_PORTED = (
@@ -276,6 +280,7 @@ class _StaticCfg:
     k_slot: int = 0               # max tools hosted on any one server
     use_aff: bool = False         # SONAR-SESSION sticky-affinity bonus
     eps: float = 0.0
+    stage1_kernel: bool = False   # stage 1 through ops.stage1_topk
 
 
 # ---------------------------------------------------------------------------
@@ -303,17 +308,20 @@ def _stacked_scores(q: torch.Tensor, wt: torch.Tensor, sc: _StaticCfg) -> torch.
 
 
 def _stage1_stacked(d: dict, sc: _StaticCfg) -> tuple:
-    """Shard-local stage 1: server scores + local top-s.
+    """Shard-local stage 1: server scores + local top-s, through the
+    selection kernel or its plain version.  A tiled fleet's template scores
+    ``s_tpl`` [n_q, M] are read through the doc map.
 
     Returns (values [J, n_q, s_keep], global server ids [J, n_q, s_keep]).
     """
-    s = d["s_pre"] if "s_pre" in d else _stacked_scores(d["q_server"], d["w_server"], sc)
-    if sc.use_failover and "dead" in d:
-        s = torch.where(d["dead"] > 0.0, NEG, s)          # [J, 1|B, s_pad] bcast
-    s = torch.where(d["server_valid"][:, None, :], s, PAD_NEG)
-    v, li = topk(s, sc.s_keep)                            # [J, n_q, s_keep]
-    gid = torch.gather(d["server_gid"][:, None, :].expand(s.shape), -1, li)
-    return v, gid
+    if "s_tpl" in d:
+        scores, doc_map = d["s_tpl"], d["server_doc_map"]
+    else:
+        scores, doc_map = _stacked_scores(d["q_server"], d["w_server"], sc), None
+    dead = d["dead"] if sc.use_failover and "dead" in d else None
+    select = ops.stage1_topk if sc.stage1_kernel else kref.stage1_topk_ref
+    return select(scores, d["server_valid"], d["server_gid"], sc.s_keep,
+                  doc_map=doc_map, dead=dead)
 
 
 def _stage2_stacked(d: dict, cand_gids: torch.Tensor, sc: _StaticCfg) -> tuple:
@@ -513,8 +521,8 @@ def _route_sharded(dyn: dict, sc: _StaticCfg, tracer: SpanTracer = NULL_TRACER):
     the input mode: dense or tiled weights and telemetry, and which
     optional vectors are supplied.  Its four stages run under ``tracer``'s
     spans ``netmcp.route.score`` (template scoring), ``netmcp.route.stage1``
-    (the fleet-axis top-s), ``netmcp.route.stage2`` (candidate tools) and
-    ``netmcp.route.select`` (the fused tail)."""
+    (the per-shard top-s and their merge), ``netmcp.route.stage2``
+    (candidate tools) and ``netmcp.route.select`` (the fused tail)."""
     # -- tiled template scoring (small products + gathers).  bf16 template
     # weights [V, n_templates] go to the products as they are: both widen
     # them exactly, so scores equal scoring the rounded f32 weights --
@@ -523,8 +531,7 @@ def _route_sharded(dyn: dict, sc: _StaticCfg, tracer: SpanTracer = NULL_TRACER):
     t_full = v_full = nt = None
     with tracer.span("netmcp.route.score", cat="routing"):
         if "server_doc_map" in dyn:
-            s_full = _bm25_2d(dyn["q_server"], dyn["w_server_tpl"], sc)
-            d["s_pre"] = s_full[:, dyn["server_doc_map"].long()].permute(1, 0, 2)
+            d["s_tpl"] = _bm25_2d(dyn["q_server"], dyn["w_server_tpl"], sc)
         if "tool_doc_map" in dyn:
             w_tool_tpl = dyn["w_tool_tpl"]
             t_full = _bm25_2d(dyn["q_tool"], w_tool_tpl, sc)
@@ -605,6 +612,9 @@ class ShardedRoutingEngine:
     NotImplementedError.  ``use_kernels`` defaults to True on the card.
     A tiled fleet takes the candidate-compacted stage 2 when every server
     hosts a tool and ``n_servers >= cfg.top_s`` (``self.compact_stage2``).
+    Stage 1 takes the selection kernel (`kernels/ops.stage1_topk`) on the
+    kernel path when its per-shard ``s_keep`` and a tiled fleet's template
+    count fit the kernel (``self.stage1_kernel``), else its plain version.
     ``adapt`` (implied by ``algo="sonar_adapt"``) turns on the SONAR-ADAPT
     learner: one replicated state, updated once per route.  ``obs`` (default
     a disabled `Observability`) lends its tracer to the engine's spans:
@@ -694,10 +704,13 @@ class ShardedRoutingEngine:
             self._w_server_sh = self._to(ws[plan.server_gid].transpose(2, 0, 1), torch.float32)
             self._w_tool_sh = self._to(wt[plan.tool_gid].transpose(2, 0, 1), torch.float32)
 
+        s_keep = min(cfg.top_s, plan.s_pad)
+        self.stage1_kernel = use_kernels and s_keep <= stage1_topk.K_MAX and (
+            not self.tiled or len(index.templates) <= stage1_topk.TPL_MAX)
         self._sc = _StaticCfg(
             top_s=cfg.top_s, top_k=cfg.top_k,
             n_servers=self.n_servers, n_tools=int(index.n_tools),
-            s_keep=min(cfg.top_s, plan.s_pad), k_keep=min(cfg.top_k, plan.t_pad),
+            s_keep=s_keep, k_keep=min(cfg.top_k, plan.t_pad),
             alpha=cfg.alpha, beta=cfg.beta, gamma=cfg.gamma,
             load_knee=cfg.load_knee, load_sharp=cfg.load_sharp,
             delta=cfg.delta, rtt_scale=cfg.rtt_scale_ms, temp=cfg.expertise_temp,
@@ -706,7 +719,7 @@ class ShardedRoutingEngine:
             use_staleness=self.uses_staleness, use_failover=self.uses_failover,
             use_rtt=self.uses_rtt, rerank=self.rerank, use_kernels=use_kernels,
             qos_params=cfg.qos, compact2=self.compact_stage2, k_slot=k_slot,
-            use_aff=self.uses_affinity, eps=cfg.eps,
+            use_aff=self.uses_affinity, eps=cfg.eps, stage1_kernel=self.stage1_kernel,
         )
 
         # SONAR-ADAPT learner: one state on the device, updated once per

@@ -31,6 +31,7 @@ from repro_torch.kernels import qos_score as _qos
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import score_fuse as _scf
 from repro_torch.kernels import select_fuse as _sel
+from repro_torch.kernels import stage1_topk as _s1
 
 _LAUNCHERS = {
     "bm25_scores": _bm25.bm25_scores_cuda,
@@ -39,6 +40,7 @@ _LAUNCHERS = {
     "fused_select": _sel.fused_select_cuda,
     "flash_attention": _fa.flash_attention_cuda,
     "decode_attention": _dec.decode_attention_cuda,
+    "stage1_topk": _s1.stage1_topk_cuda,
 }
 
 
@@ -217,6 +219,42 @@ def fused_select(
         k=k, alpha=weights[0], beta=weights[1], gamma=weights[2], delta=weights[3],
         eps=eps, temp=temp, live_weights=live,
     )
+
+
+# ---------------------------------------------------------------------------
+# The sharded engine's stage 1: per-shard top-s
+# ---------------------------------------------------------------------------
+
+def stage1_topk(
+    scores: torch.Tensor,                     # tiled [n_q, M] / dense [J, n_q, S]
+    valid: torch.Tensor,                      # [J, S] bool
+    server_gid: torch.Tensor,                 # [J, S] int
+    k: int,
+    *,
+    doc_map: Optional[torch.Tensor] = None,   # [J, S] template of each server
+    dead: Optional[torch.Tensor] = None,      # [J, 1|n_q, S], > 0 masks
+):
+    """(values [J, n_q, k] f32, global ids [J, n_q, k] i32): the top ``k``
+    servers of each (shard, query) row under (score desc, index asc), dead
+    servers scoring NEG and shard pads PAD_NEG.  With ``doc_map`` the
+    scores are template scores read through it in place (a tiled fleet);
+    nothing ``[J, n_q, S]``-sized is written on the card.  ``k`` above the
+    kernel's K_MAX, or more than its TPL_MAX templates, raises on the card."""
+    where = _where(scores, valid, server_gid, doc_map, dead)
+    if where == "meta":
+        J, S = valid.shape
+        n_q = scores.shape[0] if doc_map is not None else scores.shape[1]
+        return _meta_call("stage1_topk", J * n_q * S,      # one compare an entry
+                          _nbytes(scores, valid, doc_map, dead) + 12 * J * n_q * k,
+                          torch.float32, _empty_meta((J, n_q, k), torch.float32),
+                          _empty_meta((J, n_q, k), torch.int32))
+    if where == "cpu":
+        return kref.stage1_topk_ref(scores, valid, server_gid, k, doc_map=doc_map, dead=dead)
+    return _s1.stage1_topk_cuda(
+        scores.to(torch.float32).contiguous(), valid.to(torch.bool).contiguous(),
+        server_gid.to(torch.int32).contiguous(), k,
+        doc_map=None if doc_map is None else doc_map.to(torch.int32).contiguous(),
+        dead=None if dead is None else dead.to(torch.float32).contiguous())
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,9 @@ argmax) over materialised score matrices: the oracle of the batched
 engine's ``use_kernels=False`` path.  `fused_score_select_ref` adds the
 stage-2 BM25 product and the candidate mask in front of it: the plain
 version of the fused CUDA kernel (`kernels/score_fuse.py`), which the
-wrapper in `kernels/ops.py` runs for CPU tensors.
+wrapper in `kernels/ops.py` runs for CPU tensors.  `stage1_topk_ref` is
+the sharded engine's stage 1 (template gather, dead and pad masks, a
+stable top-k per shard): the plain version of `kernels/stage1_topk.py`.
 
 The softmax denominator is summed over the k slots in order, as the
 kernel does, and every top-k is a stable sort, so ties break toward the
@@ -30,6 +32,7 @@ from repro_torch.core.bm25 import bm25_scores as bm25_ref  # noqa: F401
 from repro_torch.core.qos import QosParams, network_score as qos_ref  # noqa: F401
 
 NEG = -1e30   # finite -inf stand-in (kernel and oracle agree)
+PAD_NEG = 2.0 * NEG   # shard pad sentinel: sorts strictly below every real score and NEG
 
 
 def _gather(per_tool: torch.Tensor, top_i: torch.Tensor) -> torch.Tensor:
@@ -131,6 +134,29 @@ def fused_score_select_ref(
         k=k, alpha=alpha, beta=beta, gamma=gamma, temp=temp,
         tool_rtt=tool_rtt, delta=delta, tool_aff=tool_aff, eps=eps,
     )
+
+
+def stage1_topk_ref(
+    scores: torch.Tensor,                     # tiled [n_q, M] / dense [J, n_q, S]
+    valid: torch.Tensor,                      # [J, S] bool
+    server_gid: torch.Tensor,                 # [J, S] int
+    k: int,
+    *,
+    doc_map: Optional[torch.Tensor] = None,   # [J, S] template of each server
+    dead: Optional[torch.Tensor] = None,      # [J, 1|n_q, S], > 0 masks
+):
+    """Stage 1 of the sharded engine, shard by shard: the top ``k`` servers
+    of every (shard, query) row, ties toward the lower index.  A tiled
+    fleet's template scores are gathered through ``doc_map``; dead servers
+    score NEG, shard pads (``valid`` false) PAD_NEG.  Returns (values
+    [J, n_q, k], global server ids [J, n_q, k] from ``server_gid``)."""
+    s = scores if doc_map is None else scores[:, doc_map.long()].permute(1, 0, 2)
+    if dead is not None:
+        s = torch.where(dead > 0.0, NEG, s)               # [J, 1|n_q, S] bcast
+    s = torch.where(valid[:, None, :], s, PAD_NEG)
+    v, li = topk(s, k)                                    # [J, n_q, k]
+    gid = torch.gather(server_gid[:, None, :].expand(s.shape), -1, li)
+    return v, gid
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,11 @@ their plain versions and must agree bit for bit at softmax temperature 1
 (the engines' default).  At another temperature PyTorch divides by the Python scalar as
 a multiply by its reciprocal while the kernel divides, so C and S agree
 within rtol 2e-6 / atol 2e-7 there; QoS sums in another order and agrees
-within the same tolerance.  Decisions are always exact.  A CUDA tensor
-must never reach a plain version.
+within the same tolerance.  Decisions are always exact.  The sharded
+engine's stage-1 selection returns its plain version's values bit for bit
+and its ids exactly, the plain version run on CPU copies (the card's
+``torch.sort`` may order -0 and +0 otherwise).  A CUDA tensor must never
+reach a plain version.
 
 The attention kernels (flash prefill, flash decode) keep the softmax state
 and P in f32 like their plain versions (`mha_ref`, `decode_ref`) but sum in
@@ -40,6 +43,8 @@ from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import qos_score, score_fuse
 from repro_torch.traffic import mega_fleet_index
+
+import stage1_cases
 
 RTOL, ATOL = 2e-6, 2e-7
 pytestmark = pytest.mark.cuda
@@ -309,6 +314,7 @@ def test_ops_never_take_the_plain_path_on_cuda(cuda, monkeypatch):
     monkeypatch.setattr(ops, "network_score", plain_called)
     monkeypatch.setattr(kref, "fused_score_select_ref", plain_called)
     monkeypatch.setattr(kref, "fused_select_ref", plain_called)
+    monkeypatch.setattr(kref, "stage1_topk_ref", plain_called)
     ops.reset_launches()
     ops.bm25_scores(q, w.t())
     ops.qos_scores(lat)
@@ -316,6 +322,8 @@ def test_ops_never_take_the_plain_path_on_cuda(cuda, monkeypatch):
                            k=5, alpha=1.0, beta=0.0)
     sel = torch.rand((20, 700), device=cuda)
     ops.fused_select(sel, sel, torch.zeros(700, device=cuda), k=5, alpha=1.0, beta=0.0)
+    ops.stage1_topk(sel[None], torch.ones((1, 700), dtype=torch.bool, device=cuda),
+                    torch.zeros((1, 700), dtype=torch.int32, device=cuda), 5)
     torch.cuda.synchronize()
     q = torch.randn((1, 4, 70, 64), device=cuda)
     kv = torch.randn((1, 2, 70, 64), device=cuda)
@@ -326,7 +334,7 @@ def test_ops_never_take_the_plain_path_on_cuda(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"bm25_scores": 1, "qos_scores": 1, "fused_score_select": 1,
                                    "fused_select": 1, "flash_attention": 1,
-                                   "decode_attention": 1}
+                                   "decode_attention": 1, "stage1_topk": 1}
     # a head dim between the compiled widths is zero-padded (40 -> 64); one
     # above the widest is refused
     assert ops.flash_attention(q[..., :40], kv[..., :40], kv[..., :40]).shape == (1, 4, 70, 40)
@@ -466,6 +474,61 @@ def test_select_kernel_widths_and_edge_rows(cuda, n_t, k):
             assert torch.equal(a, b), (n_t, k)
 
 
+def _stage1_on_card_and_cpu(c, cuda, dense=False):
+    """The selection on the card and its plain version on CPU copies (the
+    card's torch.sort may order -0 and +0 otherwise); ``dense`` feeds a
+    tiled case's scores gathered to [J, n_q, S]."""
+    args, kw = stage1_cases.tensors(c)
+    if dense:
+        args = (args[0][:, kw.pop("doc_map").long()].permute(1, 0, 2).contiguous(), *args[1:])
+    want = kref.stage1_topk_ref(*args, **kw)
+    before = ops.launch_counts()["stage1_topk"]
+    got = ops.stage1_topk(*(a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args),
+                          **{n: t.to(cuda) for n, t in kw.items()})
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["stage1_topk"] == before + 1
+    return [t.cpu() for t in got], want
+
+
+@pytest.mark.parametrize("case", stage1_cases.CASES)
+def test_stage1_topk_bit_equal_to_plain(cuda, case):
+    """The stage-1 selection kernel against its plain version on every
+    adversarial case (ties, tilings, broadcast and per-query dead rows, pads
+    below dead, fewer live than k, -0/+0, +-inf, NaN, k = s_pad, several
+    scan chunks): values bit for bit, ids equal; tiled cases also dense."""
+    c = stage1_cases.make(case)
+    for dense in (False, True) if "doc_map" in c else (False,):
+        (v, g), (wv, wg) = _stage1_on_card_and_cpu(c, cuda, dense)
+        assert stage1_cases.same_bits(v.numpy(), wv.numpy()), (case, dense)
+        assert torch.equal(g, wg), (case, dense)
+
+
+def test_stage1_topk_at_the_mega_route_shape(cuda):
+    """1,000,000 servers in 4 shards of 250,000, 256 queries, s_keep 8, 5 %
+    dead, 15 templates (tie-heavy scores): tiled and dense, bit-equal to the
+    plain version on CPU copies."""
+    rng = np.random.default_rng(7)
+    J, S, n_q, M = 4, 250_000, 256, 15
+    gid = np.arange(J * S, dtype=np.int32).reshape(J, S)
+    c = dict(scores=rng.integers(0, 6, (n_q, M)).astype(np.float32) * 0.375,
+             doc_map=(gid % M).astype(np.int32), valid=np.ones((J, S), bool), server_gid=gid,
+             dead=(rng.random((J, 1, S)) < 0.05).astype(np.float32), k=8)
+    for dense in (False, True):
+        (v, g), (wv, wg) = _stage1_on_card_and_cpu(c, cuda, dense)
+        assert stage1_cases.same_bits(v.numpy(), wv.numpy()), dense
+        assert torch.equal(g, wg), dense
+
+
+def test_stage1_topk_refuses_what_it_cannot_run(cuda):
+    valid = torch.ones((2, 300), dtype=torch.bool, device=cuda)
+    gid = torch.zeros((2, 300), dtype=torch.int32, device=cuda)
+    doc = torch.zeros((2, 300), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="k=129"):
+        ops.stage1_topk(torch.zeros((3, 15), device=cuda), valid, gid, 129, doc_map=doc)
+    with pytest.raises(ValueError, match="templates"):
+        ops.stage1_topk(torch.zeros((3, 257), device=cuda), valid, gid, 8, doc_map=doc)
+
+
 def test_sharded_kernel_path_equals_plain_path(cuda):
     """The shard-stacked engine over a tiled fleet: every algorithm's
     kernel-path decision equals the plain path's, with one fused_select
@@ -488,7 +551,7 @@ def test_sharded_kernel_path_equals_plain_path(cuda):
         ek = make_sharded_engine(algo, cfg=cfg, n_shards=4, index=index)
         ops.reset_launches()
         a = ek.route_texts(texts, **kw)
-        assert ops.launch_counts()["fused_select"] == 1, algo
+        assert ops.launch_counts()["fused_select"] == ops.launch_counts()["stage1_topk"] == 1, algo
         b = make_sharded_engine(algo, cfg=cfg, n_shards=4, index=index,
                                 use_kernels=False).route_texts(texts, **kw)
         np.testing.assert_array_equal(a.tool_idx, b.tool_idx, err_msg=algo)

@@ -13,8 +13,10 @@ kernels (`ops.flash_attention`, `ops.decode_attention` on CPU tensors) to
 the reference's entry points (Pallas, interpret mode) and oracles
 (`mha_ref`, `decode_ref`) on a subset of `tests/test_kernels.py`'s shapes,
 within its tolerances (rtol = atol = 2e-5 in float32, 2e-2 in bfloat16).
-The CUDA kernels themselves are tested on the card by
-`tests/test_torch_cuda.py`.
+The sharded engine's stage-1 selection (`ops.stage1_topk`, plain version
+`kref.stage1_topk_ref`) is held to a numpy lexsort oracle of its rule on
+`tests/stage1_cases.py`'s cases.  The CUDA kernels themselves are tested on
+the card by `tests/test_torch_cuda.py`.
 """
 import subprocess
 import sys
@@ -30,9 +32,11 @@ from repro.kernels.decode_attention import decode_attention_pallas
 from repro.kernels import ref as jref
 from repro_torch.core import qos
 from repro_torch.kernels import _build, ops
-from repro_torch.kernels import bm25_score, qos_score, score_fuse, select_fuse
+from repro_torch.kernels import bm25_score, qos_score, score_fuse, select_fuse, stage1_topk
 from repro_torch.kernels import decode_attention, flash_attention
 from repro_torch.kernels import ref as kref
+
+import stage1_cases
 
 RTOL, ATOL = 2e-6, 2e-7
 STRIPE, QUERY_TILE = 512, 8
@@ -268,7 +272,7 @@ def test_qos_scores_dispatches_to_plain_on_cpu(T):
                                rtol=RTOL, atol=ATOL)
     assert ops.launch_counts() == {"bm25_scores": 0, "qos_scores": 0, "fused_score_select": 0,
                                    "fused_select": 0, "flash_attention": 0,
-                                   "decode_attention": 0}
+                                   "decode_attention": 0, "stage1_topk": 0}
 
 
 def test_kernel_launchers_refuse_cpu_tensors_without_building():
@@ -296,6 +300,10 @@ def test_kernel_launchers_refuse_cpu_tensors_without_building():
     with pytest.raises(ValueError, match="CUDA"):
         decode_attention.decode_attention_cuda(x4[:, :, :1], x4, x4,
                                                torch.ones(1, dtype=torch.int32), sm_scale=0.125)
+    with pytest.raises(ValueError, match="CUDA"):
+        stage1_topk.stage1_topk_cuda(x, torch.ones((2, 3), dtype=torch.bool),
+                                     torch.zeros((2, 3), dtype=torch.int32), 1,
+                                     doc_map=torch.zeros((2, 3), dtype=torch.int32))
     assert _build._LIBS == {}
 
 
@@ -309,6 +317,7 @@ def test_importing_builds_nothing():
         "subprocess.Popen = refuse\n"
         "from repro_torch.kernels import _build, ops, bm25_score, qos_score, score_fuse, ref\n"
         "from repro_torch.kernels import select_fuse, flash_attention, decode_attention\n"
+        "from repro_torch.kernels import stage1_topk\n"
         "from repro_torch.core import dataset\n"
         "from repro_torch.core.batch_routing import make_engine\n"
         "from repro_torch.core.mesh_routing import make_sharded_engine\n"
@@ -331,9 +340,56 @@ def test_importing_builds_nothing():
         "assert _build._LIBS == {}\n"
         "assert ops.launch_counts() == {'bm25_scores': 0, 'qos_scores': 0,"
         " 'fused_score_select': 0, 'fused_select': 0, 'flash_attention': 0,"
-        " 'decode_attention': 0}\n"
+        " 'decode_attention': 0, 'stage1_topk': 0}\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+@pytest.mark.parametrize("case", stage1_cases.CASES)
+def test_stage1_topk_plain_matches_lexsort_oracle(case):
+    """The sharded engine's plain stage 1, and `ops.stage1_topk` on CPU
+    tensors, against a numpy lexsort of (score desc, index asc): ties,
+    15-template tilings, broadcast and per-query dead rows, pads below dead,
+    fewer live servers than k, -0/+0, +-inf and NaN, k = s_pad, and rows
+    past one scan chunk.  Values bit for bit, ids exactly."""
+    c = stage1_cases.make(case)
+    want_v, want_g = stage1_cases.oracle(c["scores"], c["valid"], c["server_gid"], c["k"],
+                                         c.get("doc_map"), c.get("dead"))
+    args, kw = stage1_cases.tensors(c)
+    for fn in (kref.stage1_topk_ref, ops.stage1_topk):
+        v, g = fn(*args, **kw)
+        assert v.dtype == torch.float32 and g.dtype == torch.int32
+        assert stage1_cases.same_bits(v.numpy(), want_v), case
+        np.testing.assert_array_equal(g.numpy(), want_g, err_msg=case)
+    assert ops.launch_counts()["stage1_topk"] == 0
+
+
+@pytest.mark.parametrize("tiled", [True, False])
+def test_stage1_topk_on_meta_reports_its_bytes(tiled):
+    """On meta tensors the selection launches nothing and reports one
+    compare an entry and the bytes it needs: its operands read once, the
+    winners' ids read and its results written once, at the mega route's
+    shape."""
+    J, n_q, S, M, k = 4, 256, 250_000, 15, 8
+
+    def m(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    scores = m((n_q, M)) if tiled else m((J, n_q, S))
+    kw = dict(doc_map=m((J, S), torch.int32)) if tiled else {}
+    seen = []
+    ops.meta_listeners.append(lambda *a: seen.append(a))
+    try:
+        v, g = ops.stage1_topk(scores, m((J, S), torch.bool), m((J, S), torch.int32), k,
+                               dead=m((J, 1, S)), **kw)
+    finally:
+        ops.meta_listeners.pop()
+    assert v.shape == g.shape == (J, n_q, k) and v.device.type == g.device.type == "meta"
+    assert (v.dtype, g.dtype) == (torch.float32, torch.int32)
+    read = 4 * scores.numel() + J * S * (1 + 4) + 4 * J * S * tiled
+    assert seen == [("stage1_topk", float(J * n_q * S), float(read + 12 * J * n_q * k),
+                     torch.float32)]
+    assert ops.launch_counts()["stage1_topk"] == 0
 
 
 def test_qos_kernel_constants():

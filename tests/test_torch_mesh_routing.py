@@ -39,6 +39,7 @@ from repro_torch.core.mesh_routing import (
     make_sharded_engine,
 )
 from repro_torch.core.routing import ToolIndex
+from repro_torch.kernels import ops
 from repro_torch.obs import DeviceRouteStats
 from repro_torch.traffic import mega_fleet_index, replica_fleet
 
@@ -303,6 +304,53 @@ def test_tiled_fleet_smaller_than_top_s_takes_full_tool_axis(algo):
             assert not eng.compact_stage2
             _same(eng.route_texts(QUERY_TEXTS, *args), want,
                   f"{algo} use_kernels={use_kernels} ndim={args[0].ndim}")
+
+
+@pytest.mark.parametrize("tiled,n_shards,top_s,kernel", [
+    (True, 4, 8, True), (False, 3, 4, True), (True, 2, 200, False),
+])
+def test_stage1_selection_kernel_choice_and_decisions(monkeypatch, tiled, n_shards, top_s,
+                                                      kernel):
+    """With ``use_kernels`` the engine takes `ops.stage1_topk` for stage 1
+    (once per route; a tiled fleet's template scores go in with the doc
+    map) when the per-shard s_keep fits the kernel, else its plain version;
+    without, the plain version.  Decisions equal across the two (on the CPU
+    both run the plain selection)."""
+    calls = []
+    real = ops.stage1_topk
+
+    def counted(scores, *a, doc_map=None, **kw):
+        calls.append((tuple(scores.shape), doc_map is not None))
+        return real(scores, *a, doc_map=doc_map, **kw)
+
+    monkeypatch.setattr(ops, "stage1_topk", counted)
+    rng = np.random.default_rng(31)
+    if tiled:
+        n = 600
+        op = _tiled_operands(n)
+        kw = dict(telemetry_templates=(op.pop("compact"), op.pop("tel_map")),
+                  server_load=op["server_load"], telemetry_age_s=op["telemetry_age_s"],
+                  failed_mask=op["failed_mask"])
+        make = dict(index=mega_fleet_index(n))
+    else:
+        servers, hist, load, age, mask, _ = _materialize(5, 8, False, False, "some")
+        kw = dict(latency_hist=hist, server_load=load, telemetry_age_s=age,
+                  failed_mask=rng.random((len(QUERY_TEXTS), 8)) < 0.4)
+        make = dict(servers=_port_servers(servers))
+    _, cfg = _cfg(top_s=top_s, top_k=6)
+    got = {}
+    for use_kernels in (True, False):
+        eng = make_sharded_engine("sonar_ft", cfg=cfg, n_shards=n_shards, device="cpu",
+                                  use_kernels=use_kernels, **make)
+        assert eng.stage1_kernel == (use_kernels and kernel)
+        calls.clear()
+        got[use_kernels] = eng.route_texts(QUERY_TEXTS, **kw)
+        n_q = len(QUERY_TEXTS)
+        want = ([((n_q, len(eng.index.templates)), True) if tiled
+                 else ((n_shards, n_q, eng.plan.s_pad), False)]
+                if eng.stage1_kernel else [])
+        assert calls == want
+    _same(got[True], got[False], f"tiled={tiled} top_s={top_s}")
 
 
 def test_kernel_path_parity_with_pallas_interpret():
